@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
+the ``tweediemix_tpu_torch`` package beside this file; it imports nothing of
+JAX or of the JAX package. Phases:
+
+1. the card's name and power limit, torch/CUDA versions, the kernel build
+   (nvcc, sm_90a) and its time;
+2. kernels: each hand-written kernel against its plain PyTorch version on
+   the same inputs at the main path's shapes and the edge cases, with its
+   time, the plain version's, one PyTorch library call's (a yardstick only)
+   and the bound;
+3. reference: a small UNet and a short fusion sample on the card (bf16,
+   through the kernel) against the same weights on the CPU (fp32, plain
+   versions); with resampling, the card's distance from fp32 is held
+   against the plain bf16 path's on the CPU;
+4. main path: the SDXL multi-concept fusion sample at full width (UNet
+   ``sdxl(concept_slots=4)`` in bf16 with seeded random weights, fp32 VAE,
+   50 DDIM steps at 1024², N=3, t_cond 0.2, resampling 10, jumping 5, half
+   masks) through ``TweedieMixPipeline.sample``, twice, with the kernel's
+   launch count checked on each run, then one batch-4 and one batch-2 UNet
+   call under torch.profiler (device time by kernel class, idle share).
+
+It prints a JSON line of kernel results, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``. Any failed check
+exits non-zero without that line.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM data sheet
+# max |kernel - plain| / max |plain|, the plain version in fp32 on the same
+# bf16 inputs. randn q/k/v give outputs of std ~ sqrt(e/Sk), far below 1, so
+# the limit is relative: the kernel's bf16 output rounding alone reads up to
+# ~4e-3, while a skipped 64-key tile at Sk = 4096 reads ~1e-1.
+FLASH_REL_TOL = 1e-2
+EPS_REL_TOL = 5e-2  # small UNet eps, bf16 card vs fp32 CPU, relative to max |eps|
+SAMPLE_REL_TOL = 1e-2  # short trajectory latent without resampling, same comparison
+# With resampling, bf16 rounding anywhere is amplified step by step (the
+# composed Tweedie (N-1)·x0_multi − Σ x0_single cancels most of x), so the
+# card's error against fp32 is held against the plain bf16 path's error on
+# the CPU: a kernel fault shows as a card error far above the plain one.
+RESAMPLE_RATIO_TOL = 3.0
+# (BH, Sq, Sk, dh): the main path's four shapes, then the edge cases
+MAIN_SHAPES = [(40, 4096, 4096, 64), (20, 4096, 4096, 64), (80, 1024, 1024, 64), (40, 1024, 1024, 64)]
+EDGE_SHAPES = [(2, 300, 300, 128), (8, 1024, 1024, 256), (4, 1024, 77, 64)]
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call, from CUDA events after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_build():
+    import torch
+
+    from tweediemix_tpu_torch.ops import cuda_build
+
+    log(f"gpu: {gpu_name_and_power()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    cuda_build.load_library("flash_attention")
+    log(f"kernel build: flash_attention {time.perf_counter() - t0:.3f} s (nvcc, sm_90a)")
+    ptxas = cuda_build.BUILD_DIR / "flash_attention.ptxas.txt"
+    if ptxas.exists():
+        log(ptxas.read_text().strip())
+
+
+def phase_kernels() -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from tweediemix_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    results = []
+    for bh, sq, sk, dh in MAIN_SHAPES + EDGE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(bh * 7 + sq + sk + dh)
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in (sq, sk, sk))
+        out = flash_attention(q, k, v)
+        ref = flash_attention_reference(q.float(), k.float(), v.float())  # fp32 output
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention non-finite output at {(bh, sq, sk, dh)}")
+        big = sq * sk >= 1024 * 1024
+        reps = 20 if big else 50
+        ms = cuda_ms(lambda: flash_attention(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v), max(3, reps // 5))
+        q4, k4, v4 = q[None], k[None], v[None]  # [1, BH, S, dh] reaches SDPA's fused kernels
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
+        flops = 4.0 * bh * sq * sk * dh
+        nbytes = 2.0 * bh * (2 * sq + 2 * sk) * dh
+        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+        row = dict(shape=[bh, sq, sk, dh], max_abs_err=err, rel_err=rel, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   tflops=flops / ms / 1e9)
+        log(f"flash_attention {tuple(row['shape'])}: max_abs_err {err:.3e} rel_err {rel:.3e} "
+            f"ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms {library_ms:.4f} "
+            f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) {row['tflops']:.1f} TFLOP/s")
+        if not rel <= FLASH_REL_TOL:
+            fail(f"flash_attention disagrees with its plain version at {(bh, sq, sk, dh)}: "
+                 f"max err / max |plain| = {rel:.3e} > {FLASH_REL_TOL}")
+        results.append(row)
+        del q, k, v, q4, k4, v4, out, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def _random_embeds(n_concepts, ctx_len, ctx_dim, pool_dim, device, seed):
+    import torch
+
+    from tweediemix_tpu_torch.fusion.sampler import TextEmbeds
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rows(n):
+        return (0.1 * torch.randn((n, ctx_len, ctx_dim), generator=gen),
+                0.1 * torch.randn((n, pool_dim), generator=gen))
+
+    jc, jp = rows(2)
+    sc, sp = rows(n_concepts - 1)
+    cc, cp = rows(n_concepts + 1)
+    return TextEmbeds(*(t.to(device) for t in (jc, jp, sc, sp, cc, cp)))
+
+
+def _half_masks(n_concepts, h, w, device):
+    import torch
+
+    fg = torch.zeros((n_concepts - 1, h, w), device=device)
+    fg[0, :, : w // 2] = 1.0
+    fg[1, :, w // 2 :] = 1.0
+    return fg
+
+
+def phase_reference():
+    """A small config whose self-attention reaches the kernel (1024 tokens,
+    dh=64): the card (bf16, kernel) against the CPU (fp32, plain)."""
+    import torch
+
+    from tweediemix_tpu_torch.fusion.pipeline import TweedieMixPipeline
+    from tweediemix_tpu_torch.fusion.sampler import FusionConfig
+    from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
+    from tweediemix_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+
+    n = 3
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              cross_attention_dim=64, pooled_projection_dim=64, concept_slots=n + 1)
+    fcfg = FusionConfig(n_timesteps=4, t_cond=0.5, resampling_steps=0, jumping_steps=1,
+                        height=512, width=512, num_concepts=n)
+    torch.manual_seed(1)
+    unet_cpu = UNet2DConditionModel(UNetConfig.tiny(**kw), device="cpu")
+    vae_cpu = AutoencoderKL(VAEConfig.tiny(), device="cpu")
+    unet_gpu = UNet2DConditionModel(UNetConfig.tiny(dtype=torch.bfloat16, **kw), device="cuda")
+    unet_gpu.load_state_dict(unet_cpu.state_dict())
+    unet_cpu16 = UNet2DConditionModel(UNetConfig.tiny(dtype=torch.bfloat16, **kw), device="cpu")
+    unet_cpu16.load_state_dict(unet_cpu.state_dict())
+    vae_gpu = AutoencoderKL(VAEConfig.tiny(), device="cuda")
+    vae_gpu.load_state_dict(vae_cpu.state_dict())
+
+    h, w = fcfg.latent_hw
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn((2, h, w, 4), generator=gen)
+    ctx = 0.2 * torch.randn((2, 9, 64), generator=gen)
+    pooled = 0.2 * torch.randn((2, 64), generator=gen)
+    tids = torch.tensor([[512.0, 512, 0, 0, 512, 512]]).expand(2, 6)
+    idx = torch.tensor([0, 2])
+    with torch.inference_mode():
+        want = unet_cpu(x, 501, ctx, pooled, tids, idx)
+        flash_attention.launches = 0
+        got = unet_gpu(x.cuda(), 501, ctx.cuda(), pooled.cuda(), tids.cuda(), idx.cuda()).cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"reference: small UNet eps, card bf16 vs CPU fp32: max err / max |eps| = {rel:.3e} "
+        f"(flash launches {flash_attention.launches})")
+    sites = flash_sites_per_call(unet_gpu.config, (h, w))
+    if sites == 0 or flash_attention.launches != sites or not rel <= EPS_REL_TOL:
+        fail(f"small UNet on the card disagrees with the CPU: rel {rel:.3e}, "
+             f"launches {flash_attention.launches}")
+
+    embeds = _random_embeds(n, 9, 64, 64, "cpu", seed=3)
+    embeds_gpu = embeds._replace(**{f: getattr(embeds, f).cuda() for f in embeds._fields})
+    fg = _half_masks(n, fcfg.height, fcfg.width, "cpu")
+    x_init = torch.randn((1, h, w, 4), generator=gen)
+
+    def sample(unet, vae, cfg, device):
+        pipe = TweedieMixPipeline(unet, vae, cfg, device=device)
+        on_card = device == "cuda"
+        img = pipe.sample(embeds_gpu if on_card else embeds, fg_masks=fg.to(device),
+                          x_init=x_init.to(device))
+        return pipe.last_latent.float().cpu(), img.float().cpu()
+
+    def rel_err(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    lat_cpu, img_cpu = sample(unet_cpu, vae_cpu, fcfg, "cpu")
+    lat_gpu, img_gpu = sample(unet_gpu, vae_gpu, fcfg, "cuda")
+    rel = rel_err(lat_gpu, lat_cpu)
+    img_err = (img_gpu - img_cpu).abs().max().item()
+    log(f"reference: 4-step fusion sample, no resampling, card bf16 vs CPU fp32: latent "
+        f"max err / max = {rel:.3e}, image max abs err {img_err:.3e}")
+    if not rel <= SAMPLE_REL_TOL:
+        fail(f"short fusion sample on the card disagrees with the CPU: {rel:.3e}")
+
+    # the same sample with resampling, as the main path runs it; the plain
+    # bf16 path on the CPU says how far bf16 alone carries it from fp32
+    rcfg = dataclasses.replace(fcfg, resampling_steps=2)
+    lat_cpu, _ = sample(unet_cpu, vae_cpu, rcfg, "cpu")
+    lat_cpu16, _ = sample(unet_cpu16, vae_cpu, rcfg, "cpu")
+    lat_gpu, _ = sample(unet_gpu, vae_gpu, rcfg, "cuda")
+    rel_card, rel_plain = rel_err(lat_gpu, lat_cpu), rel_err(lat_cpu16, lat_cpu)
+    log(f"reference: the same sample with resampling 2, latent max err / max against CPU "
+        f"fp32: card bf16 (kernel) {rel_card:.3e}, CPU bf16 (plain) {rel_plain:.3e}")
+    if not (math.isfinite(rel_card) and rel_card <= RESAMPLE_RATIO_TOL * rel_plain):
+        fail(f"resampled sample on the card is {rel_card:.3e} from fp32, more than "
+             f"{RESAMPLE_RATIO_TOL} x the plain bf16 path's {rel_plain:.3e}")
+
+
+def flash_sites_per_call(ucfg, latent_hw) -> int:
+    """Self-attentions of one UNet call that the dispatcher sends to the
+    flash kernel."""
+    from tweediemix_tpu_torch.models.unet2d import cross_attention_names
+    from tweediemix_tpu_torch.ops.attention import uses_flash
+
+    h, w = latent_hw
+    sites = 0
+    for level, _ in cross_attention_names(ucfg):
+        tokens = (h >> level) * (w >> level)
+        dh = ucfg.block_out_channels[level] // ucfg.num_attention_heads[level]
+        if uses_flash(tokens, tokens, dh):
+            sites += ucfg.transformer_layers_per_block[level]
+    return sites
+
+
+def expected_flash_launches(ucfg, fcfg) -> int:
+    """Flash-kernel launches per image: kernel sites per UNet call × calls."""
+    return flash_sites_per_call(ucfg, fcfg.latent_hw) * fcfg.unet_calls()
+
+
+def phase_main_path() -> dict:
+    import torch
+
+    from tweediemix_tpu_torch.fusion.pipeline import TweedieMixPipeline
+    from tweediemix_tpu_torch.fusion.sampler import FusionConfig
+    from tweediemix_tpu_torch.models.unet2d import UNetConfig
+    from tweediemix_tpu_torch.models.vae import VAEConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+
+    n = 3  # cat + dog + background
+    ucfg = UNetConfig.sdxl(concept_slots=n + 1, dtype=torch.bfloat16)
+    vcfg = VAEConfig.sdxl()
+    fcfg = FusionConfig(n_timesteps=50, guidance_scale=0.8, t_cond=0.2, resampling_steps=10,
+                        jumping_steps=5, height=1024, width=1024, num_concepts=n)
+    expected = expected_flash_launches(ucfg, fcfg)
+    if expected != 5250:
+        fail(f"expected 5250 flash launches for this config, the config gives {expected}")
+
+    t0 = time.perf_counter()
+    pipe = TweedieMixPipeline.from_random_weights(ucfg, vcfg, fcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.unet.parameters())
+    log(f"main path: UNet {n_params / 1e9:.3f} B params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s; {fcfg.unet_calls()} UNet calls per image")
+    embeds = _random_embeds(n, 77, 2048, 1280, "cuda", seed=0)
+    fg = _half_masks(n, fcfg.height, fcfg.width, "cuda")
+
+    runs = []
+    for run in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        img = pipe.sample(embeds, seed=run, fg_masks=fg, num_seeds=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+        latent = pipe.last_latent
+        stats = dict(
+            s_per_image=wall, launches=launches,
+            phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
+            max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            image_mean=img.float().mean().item(), latent_absmax=latent.abs().max().item(),
+        )
+        log(f"main path run {run}: {json.dumps(stats)}")
+        if tuple(img.shape) != (1, 1024, 1024, 3):
+            fail(f"image shape {tuple(img.shape)}")
+        if not torch.isfinite(latent).all() or not torch.isfinite(img).all():
+            fail("non-finite latent or image")
+        if img.min().item() < 0.0 or img.max().item() > 1.0:
+            fail("image outside [0, 1]")
+        if launches != expected:
+            fail(f"flash_attention launched {launches} times on the main path, expected {expected}")
+        runs.append(stats)
+    # the fp32 decode alone: its mid-block attention holds a 16384 x 16384
+    # fp32 score matrix (1 GiB) and its softmax
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pipe.decode_final(pipe.last_latent)
+    torch.cuda.synchronize()
+    decode_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"decode peak above the resident weights and latent: {decode_gib:.3f} GiB")
+    return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib,
+                profile=phase_profile(pipe, embeds))
+
+
+KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
+    ("flash_attention", ("flash_fwd_kernel",)),
+    ("layout", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolution", ("fprop", "conv", "dgrad", "winograd")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
+    ("norm", ("norm",)),
+    ("softmax", ("softmax",)),
+    ("elementwise/copy", ("elementwise", "vectorized", "copy", "cat", "fill", "reduce", "index")),
+)
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, keys in KERNEL_CLASSES:
+        if any(k.lower() in low for k in keys):
+            return cls
+    return "other"
+
+
+def phase_profile(pipe, embeds) -> dict:
+    """One fused-phase UNet call (batch N+1 = 4, cross-K/V cache on) and one
+    joint call (batch 2) under torch.profiler: device time by kernel class
+    and the top kernels; the device's idle share is taken against the mean
+    wall time of the same call run without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fcfg = pipe.fusion_config
+    h, w = fcfg.latent_hw
+    out = {}
+    calls = {
+        "fused_batch4": (embeds.concept_ctx, embeds.concept_pooled,
+                         torch.arange(fcfg.num_concepts + 1, device="cuda")),
+        "joint_batch2": (embeds.joint_ctx, embeds.joint_pooled,
+                         torch.zeros(2, dtype=torch.long, device="cuda")),
+    }
+    for label, (ctx, pooled, idx) in calls.items():
+        x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
+        with torch.inference_mode():
+            kv = pipe._kv_builder(ctx, idx)
+            pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+            torch.cuda.synchronize()
+            # wall time without the profiler, whose host overhead inflates it
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+                torch.cuda.synchronize()
+                profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name, by_class = {}, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us / 1e3)
+            cls = _kernel_class(e.name)
+            by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+        busy_ms = sum(by_class.values())
+        top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:10]
+        out[label] = dict(
+            wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, device_busy_ms=busy_ms,
+            device_idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
+            by_class_ms={k: round(v, 3) for k, v in sorted(by_class.items(), key=lambda i: -i[1])},
+            top_kernels=[dict(name=n[:90], count=c, ms=round(t, 3)) for n, (c, t) in top],
+        )
+        log(f"profile {label}: {json.dumps(out[label])}")
+    return out
+
+
+def main() -> None:
+    if not os.path.isdir(os.path.join(REPO, "tweediemix_tpu_torch")):
+        fail("the tweediemix_tpu_torch package is not beside chip_smoke.py")
+    sys.path.insert(0, REPO)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: chip_smoke.py needs a CUDA card")
+
+    phase_build()
+    kernel_rows = phase_kernels()
+    phase_reference()
+    main_path = phase_main_path()
+    head = kernel_rows[0]
+    entry = dict(
+        name="flash_attention", route="cuda",
+        source="tweediemix_tpu_torch/csrc/flash_attention.cu",
+        replaces="tweediemix_tpu/ops/flash_attention.py:37",
+        launches=main_path["runs"][0]["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in kernel_rows),
+        rel_err=max(r["rel_err"] for r in kernel_rows),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        shape=head["shape"], shapes=kernel_rows,
+    )
+    log(json.dumps(dict(main_path=main_path)))
+    log(json.dumps(dict(kernels=[entry])))
+    log(gpu_name_and_power())
+    log(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
+                                             count=torch.cuda.device_count()))))
+
+
+if __name__ == "__main__":
+    main()

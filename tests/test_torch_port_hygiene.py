@@ -1,0 +1,86 @@
+"""The torch port stands alone: it never loads JAX or the JAX package, and
+its entry points never fall back to the CPU when CUDA was asked for."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tweediemix_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.join(REPO, "tweediemix_tpu_torch")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([PKG_DIR], prefix="tweediemix_tpu_torch."))
+
+
+def _port_sources():
+    for root, _, files in os.walk(PKG_DIR):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_importing_every_port_module_loads_no_jax():
+    modules = _port_modules()
+    assert "tweediemix_tpu_torch.fusion.pipeline" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))\n"
+        "             or m == 'tweediemix_tpu' or m.startswith('tweediemix_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_do_not_name_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax)\b|\btweediemix_tpu\.", re.M)
+    offenders = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            for m in pattern.finditer(f.read()):
+                offenders.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_entry_points_without_device_raise_on_a_host_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the entry points would run there")
+    from tweediemix_tpu_torch.fusion.pipeline import TweedieMixPipeline
+    from tweediemix_tpu_torch.fusion.sampler import FusionConfig, FusionSampler
+    from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
+    from tweediemix_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tweediemix_tpu_torch.schedulers.ddim import DDIMTable
+
+    fcfg = FusionConfig(n_timesteps=10, height=64, width=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        UNet2DConditionModel(UNetConfig.micro())
+    with pytest.raises(RuntimeError, match="cuda"):
+        AutoencoderKL(VAEConfig.tiny())
+    with pytest.raises(RuntimeError, match="cuda"):
+        TweedieMixPipeline.from_random_weights(UNetConfig.micro(), VAEConfig.tiny(), fcfg)
+    unet = UNet2DConditionModel(UNetConfig.micro(), device="cpu")
+    vae = AutoencoderKL(VAEConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TweedieMixPipeline(unet, vae, fcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusionSampler(DDIMTable.create(n_steps=10), fcfg, None).init_latent(0)
+
+
+def test_package_exports_version_and_ddim_table():
+    assert tweediemix_tpu_torch.__version__
+    assert tweediemix_tpu_torch.DDIMTable.create(50).n_steps == 50

@@ -1,0 +1,106 @@
+"""The port's hand-written kernels and their build, without JAX.
+
+This file imports torch and the port only, so it also runs on the GPU
+machine, which has no JAX:
+``python -m pytest --noconftest tests/test_torch_port_kernels.py -m cuda``.
+Tests marked ``cuda`` need a CUDA card and nvcc and skip elsewhere.
+Tolerance on the card: max |kernel - plain| / max |plain| <= 1e-2, the plain
+version in fp32 on the same bf16 inputs. The limit is relative because randn
+inputs give outputs of std ~ sqrt(e/Sk), far below 1; bf16 output rounding
+alone reads up to ~4e-3.
+"""
+
+import shutil
+
+import pytest
+import torch
+
+from tweediemix_tpu_torch.ops import cuda_build
+from tweediemix_tpu_torch.ops.attention import attention
+from tweediemix_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda on the GPU machine")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bh,sq,sk,dh",
+    [(4, 1024, 1024, 64), (2, 300, 300, 128), (2, 1024, 77, 256), (1, 65, 4100, 64),
+     (3, 1, 1, 128)],
+)
+def test_flash_kernel_matches_plain_on_card(bh, sq, sk, dh):
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(bh + sq + sk + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+               for s in (sq, sk, sk))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    ref = flash_attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take_on_card():
+    _card()
+    q = torch.zeros((2, 64, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(), q[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), q, q)
+
+
+@pytest.mark.cuda
+def test_attention_dispatch_launches_kernel_on_card():
+    _card()
+    q = torch.randn((2, 1024, 64), device="cuda").to(torch.bfloat16)
+    k77 = torch.randn((2, 77, 64), device="cuda").to(torch.bfloat16)
+    before = flash_attention.launches
+    attention(q, q, q)
+    assert flash_attention.launches == before + 1
+    attention(q, k77, k77)  # cross-attention stays on the math path
+    assert flash_attention.launches == before + 1
+
+
+def test_build_reuses_the_library_of_the_same_source(tmp_path, monkeypatch):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    path = cuda_build.library_path("flash_attention")
+    assert path.parent == tmp_path and path.name.startswith("libflash_attention_")
+    path.write_bytes(b"")
+
+    def no_nvcc():
+        raise AssertionError("a library that exists must not be rebuilt")
+
+    monkeypatch.setattr(cuda_build, "find_nvcc", no_nvcc)
+    assert cuda_build.build_library("flash_attention") == path
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    if shutil.which("nvcc") or (cuda_build.Path("/usr/local/cuda/bin/nvcc")).is_file():
+        pytest.skip("this host has nvcc")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build_library("flash_attention")
+    assert not list(tmp_path.glob("*.so"))
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    def no_library(name):
+        raise AssertionError("CPU tensors must take the plain version")
+
+    monkeypatch.setattr("tweediemix_tpu_torch.ops.flash_attention.load_library", no_library)
+    q = torch.randn((2, 1024, 64)).to(torch.bfloat16)
+    out = attention(q, q, q)
+    ref = flash_attention_reference(q, q, q)
+    assert torch.equal(out, ref)

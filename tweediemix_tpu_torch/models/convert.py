@@ -1,0 +1,113 @@
+"""The JAX package's parameter trees → the port's ``state_dict``.
+
+A parameter tree is the nested dict of arrays that ``tweediemix_tpu``'s Flax
+UNet and VAE hold (``model.init(...)["params"]``, as numpy arrays). The rules:
+
+* Dense ``kernel [in, out]`` → Linear ``weight [out, in]``;
+* Conv ``kernel`` HWIO → ``weight`` OIHW;
+* norm ``scale`` → ``weight``; biases are unchanged;
+* concept stacks (``to_k_stack``/``to_v_stack`` [slots, in, out]) and LoRA
+  factors keep their layout and names;
+* a self-attention's ``to_q``/``to_k``/``to_v`` kernels become one merged
+  ``to_qkv`` weight [3·inner, C], built once here so no forward copies it;
+* Flax scope names become the diffusers module paths the port uses
+  (``down_blocks_1_attentions_0/transformer_blocks_0/ff/net_0_proj`` →
+  ``down_blocks.1.attentions.0.transformer_blocks.0.ff.net.0.proj``).
+
+A key the module lacks, a key the tree lacks, or a shape that differs
+raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_RENAMES = (
+    (re.compile(r"(down_blocks|up_blocks)_(\d+)_(resnets|attentions|downsamplers|upsamplers)_(\d+)"),
+     r"\1.\2.\3.\4"),
+    (re.compile(r"mid_block_(resnets|attentions)_(\d+)"), r"mid_block.\1.\2"),
+    (re.compile(r"transformer_blocks_(\d+)"), r"transformer_blocks.\1"),
+    (re.compile(r"\bto_out_0\b"), "to_out.0"),
+    (re.compile(r"\bff\.net_0_proj\b"), "ff.net.0.proj"),
+    (re.compile(r"\bff\.net_2\b"), "ff.net.2"),
+)
+
+
+def flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    """Nested dict → {path tuple: array}."""
+    out = {}
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            out.update(flatten_tree(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def torch_name(path: Tuple[str, ...]) -> str:
+    """Flax parameter path → the port's state_dict key."""
+    *scope, leaf = path
+    name = ".".join(scope)
+    for pattern, repl in _RENAMES:
+        name = pattern.sub(repl, name)
+    leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    return f"{name}.{leaf}" if name else leaf
+
+
+def torch_layout(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
+    """Transpose a Flax leaf into torch's layout."""
+    if path[-1] == "kernel":
+        if arr.ndim == 2:
+            return arr.T
+        if arr.ndim == 4:
+            return arr.transpose(3, 2, 0, 1)
+    return arr
+
+
+def merge_self_attention_qkv(sd: Dict[str, torch.Tensor], want: Mapping) -> None:
+    """In place: where the module holds a merged ``to_qkv.weight`` (the
+    UNet's self-attention), stack the tree's ``to_q``/``to_k``/``to_v``
+    weights into it, q rows first, as the JAX module concatenates them."""
+    for key in want:
+        if not key.endswith(".to_qkv.weight"):
+            continue
+        prefix = key[: -len("to_qkv.weight")]
+        parts = [f"{prefix}{p}.weight" for p in ("to_q", "to_k", "to_v")]
+        if all(p in sd for p in parts):
+            sd[key] = torch.cat([sd.pop(p) for p in parts], dim=0)
+
+
+def convert_params(params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Flax parameter tree (the JAX UNet's, VAE's or one block's) →
+    ``module``'s state_dict as fp32 CPU tensors; raises listing every
+    missing, unexpected or mis-shaped key."""
+    sd = {}
+    for path, arr in flatten_tree(params).items():
+        name = torch_name(path)
+        if name in sd:
+            raise ValueError(f"two parameters map to {name!r}")
+        sd[name] = torch.tensor(np.asarray(torch_layout(path, arr), dtype=np.float32))
+    want = module.state_dict()
+    merge_self_attention_qkv(sd, want)
+    problems = [f"missing: {k} {tuple(want[k].shape)}" for k in sorted(set(want) - set(sd))]
+    problems += [f"unexpected: {k} {tuple(sd[k].shape)}" for k in sorted(set(sd) - set(want))]
+    problems += [
+        f"shape mismatch: {k} got {tuple(sd[k].shape)} want {tuple(want[k].shape)}"
+        for k in sorted(set(sd) & set(want)) if tuple(sd[k].shape) != tuple(want[k].shape)
+    ]
+    if problems:
+        raise ValueError(f"converted parameters do not fit {type(module).__name__} "
+                         f"({len(problems)} problems):\n  " + "\n  ".join(problems[:20]))
+    return sd
+
+
+def load_params(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a JAX parameter tree into ``module`` (cast to its dtype)."""
+    module.load_state_dict(convert_params(params, module))
+    return module

@@ -1,0 +1,83 @@
+"""Attention dispatch: the flash kernel for long self-attention, an
+fp32-softmax math path elsewhere.
+
+Counterpart of ``tweediemix_tpu/ops/attention.py``. The flash sites are the
+ones the JAX package dispatches: both sequence lengths >= 1024 and
+dh in {64, 128, 256} (the SDXL self-attention at the 4096- and 1024-token
+levels). On CUDA tensors they go to the Hopper kernel, on CPU tensors to its
+plain version. Cross-attention (77 keys) and every other site take the math
+path, which switches to query chunks when the fp32 score tensor would pass
+256 MiB. Head split/merge happens here, so model code only sees [B, S, D].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tweediemix_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+
+FLASH_MIN_SQ = 1024
+FLASH_MIN_SK = 1024
+# cap on the materialised [BH, Sq, Sk] fp32 score tensor of the math path
+SCORE_BYTES_CAP = 256 * 1024 * 1024
+
+
+def uses_flash(sq: int, sk: int, dh: int) -> bool:
+    """Whether ``attention`` sends a [*, sq, dh] x [*, sk, dh] call to the
+    flash kernel."""
+    return sq >= FLASH_MIN_SQ and sk >= FLASH_MIN_SK and dh in HEAD_DIMS
+
+
+def math_attention(q, k, v, scale: float) -> torch.Tensor:
+    """fp32 scores and softmax; p is cast to v's dtype for the p·v product
+    (``_xla_attention`` with its bf16-scores gate at 0)."""
+    s = torch.bmm(q.float(), k.float().transpose(1, 2)) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.bmm(p.to(v.dtype), v).to(q.dtype)
+
+
+def chunked_attention(q, k, v, scale: float, chunk: int) -> torch.Tensor:
+    """Query-chunked math path: peak memory ~ BH * chunk * Sk * 4 bytes."""
+    return torch.cat(
+        [math_attention(qc, k, v, scale) for qc in torch.split(q, chunk, dim=1)], dim=1
+    )
+
+
+def attention(q, k, v, scale: float | None = None) -> torch.Tensor:
+    """Scaled dot-product attention over [BH, S, dh] tensors."""
+    bh, sq, dh = q.shape
+    sk = k.shape[1]
+    if scale is None:
+        scale = dh**-0.5
+    if uses_flash(sq, sk, dh):
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+    score_bytes = 4 * bh * sq * sk
+    if score_bytes > SCORE_BYTES_CAP:
+        chunk = min(max(1, SCORE_BYTES_CAP // (4 * bh * sk)), sq)
+        return chunked_attention(q, k, v, scale, chunk)
+    return math_attention(q, k, v, scale)
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H*dh] → [B*H, S, dh]."""
+    b, s, d = x.shape
+    dh = d // num_heads
+    return x.reshape(b, s, num_heads, dh).transpose(1, 2).reshape(b * num_heads, s, dh)
+
+
+def merge_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B*H, S, dh] → [B, S, H*dh]."""
+    bh, s, dh = x.shape
+    b = bh // num_heads
+    return x.reshape(b, num_heads, s, dh).transpose(1, 2).reshape(b, s, num_heads * dh)
+
+
+def multi_head_attention(q, k, v, num_heads: int, scale: float | None = None) -> torch.Tensor:
+    """Multi-head attention over [B, S, D] projections (pre-head-split)."""
+    if scale is None:
+        scale = (q.shape[-1] // num_heads) ** -0.5
+    out = attention(
+        split_heads(q, num_heads), split_heads(k, num_heads), split_heads(v, num_heads),
+        scale=scale,
+    )
+    return merge_heads(out, num_heads)

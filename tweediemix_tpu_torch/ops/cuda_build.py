@@ -1,0 +1,91 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source under ``tweediemix_tpu_torch/csrc/`` exposes a plain C
+interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library under ``build/`` at the repository root (listed in
+``.gitignore``) and loaded with ``ctypes``. The library's file name carries a
+hash of the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing is built or imported when this module is
+imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, /usr/local/cuda or $PATH; raises if none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """``build/lib<name>_<hash>.so``, the hash over the source and flags."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into ``library_path(name)`` unless that
+    file already exists; returns its path."""
+    src = CSRC_DIR / f"{name}.cu"
+    out = library_path(name)
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+        # ptxas -v resource usage (registers, shared memory, spills)
+        (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, compiled on first call."""
+    return ctypes.CDLL(str(build_library(name)))
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C launcher returned a non-zero cudaError_t."""
+    if err != 0:
+        lib.tm_cuda_error_string.restype = ctypes.c_char_p
+        lib.tm_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.tm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")

@@ -6,22 +6,29 @@ It needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the ``tweediemix_tpu_torch`` package beside this file; it imports nothing of
 JAX or of the JAX package. Phases:
 
-1. the card's name and power limit, torch/CUDA versions, the kernel build
-   (nvcc, sm_90a) and its time;
+1. the card's name and power limit, torch/CUDA versions, the kernels'
+   build (one nvcc per source, sm_90a, all started together) and its time;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the same inputs at the main path's shapes and the edge cases, with its
+   the same inputs at the main paths' shapes and the edge cases, with its
    time, the plain version's, one PyTorch library call's (a yardstick only)
-   and the bound;
+   and the bound; the int8 kernel also against exact fp32 attention;
 3. reference: a small UNet and a short fusion sample on the card (bf16,
    through the kernel) against the same weights on the CPU (fp32, plain
    versions); with resampling, the card's distance from fp32 is held
-   against the plain bf16 path's on the CPU;
+   against the plain bf16 path's on the CPU; then small W8A8 UNets
+   ("int8" and "int8_conv", the int8 attention core on) the same way;
 4. main path: the SDXL multi-concept fusion sample at full width (UNet
    ``sdxl(concept_slots=4)`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps at 1024², N=3, t_cond 0.2, resampling 10, jumping 5, half
    masks) through ``TweedieMixPipeline.sample``, twice, with the kernel's
    launch count checked on each run, then one batch-4 and one batch-2 UNet
-   call under torch.profiler (device time by kernel class, idle share).
+   call under torch.profiler (device time by kernel class, idle share);
+5. W8A8 main path: the same sample with ``quant="int8"`` at four seeds,
+   static per-site activation scales calibrated on the card for these
+   weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
+   attention core on (``TWEEDIEMIX_FLASH_INT8=1``): one warm and one timed
+   call, the int8 kernel's launch count checked and the bf16 kernel's held
+   at 0, then one batch-4 call profiled with the int8 core on and off.
 
 It prints a JSON line of kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -41,6 +48,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM data sheet
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 # max |kernel - plain| / max |plain|, the plain version in fp32 on the same
 # bf16 inputs. randn q/k/v give outputs of std ~ sqrt(e/Sk), far below 1, so
 # the limit is relative: the kernel's bf16 output rounding alone reads up to
@@ -53,9 +61,32 @@ SAMPLE_REL_TOL = 1e-2  # short trajectory latent without resampling, same compar
 # card's error against fp32 is held against the plain bf16 path's error on
 # the CPU: a kernel fault shows as a card error far above the plain one.
 RESAMPLE_RATIO_TOL = 3.0
+# The int8 kernel against its plain version on the same int8 inputs with the
+# same block_k: the same arithmetic but for exp2 ulps, the row-sum order and
+# the bf16 output, so the bf16 kernel's relative limit holds. Against exact
+# fp32 attention: the JAX package's own bounds for the int8 core
+# (tests/test_attention.py::test_flash_int8_qkpv_matches_fp_kernel, corr >
+# 0.999 and max err < 0.12 of max) at that test's shapes. At the main
+# path's shapes the int8 algorithm's max-element error grows with Sk and the
+# element count (0.11-0.24 of max on an H100, the kernel and its plain
+# version alike), so there corr > 0.999 holds with the relative L2 error
+# < 0.05 (0.030-0.038 on an H100).
+INT8_EXACT_CORR, INT8_EXACT_REL, INT8_EXACT_L2 = 0.999, 0.12, 0.05
+INT8_JAX_TEST_SHAPES = [(4, 256, 256, 64), (2, 300, 300, 64), (2, 128, 128, 128),
+                        (2, 300, 300, 128)]
+# A W8A8 UNet on the card (bf16) against the same int8 weights on the CPU
+# (fp32): an int8 rounding flips wherever bf16 moves an activation across a
+# half step, so the card's distance is held against the plain bf16 W8A8
+# path's distance on the CPU, as for the resampled sample.
+W8A8_RATIO_TOL = 3.0
 # (BH, Sq, Sk, dh): the main path's four shapes, then the edge cases
 MAIN_SHAPES = [(40, 4096, 4096, 64), (20, 4096, 4096, 64), (80, 1024, 1024, 64), (40, 1024, 1024, 64)]
 EDGE_SHAPES = [(2, 300, 300, 128), (8, 1024, 1024, 256), (4, 1024, 77, 64)]
+# the W8A8 main path's four shapes at four seeds (the sampler folds seeds
+# into the rows of each call)
+INT8_MAIN_SHAPES = [(160, 4096, 4096, 64), (80, 4096, 4096, 64), (320, 1024, 1024, 64),
+                    (160, 1024, 1024, 64)]
+KERNELS = ("flash_attention", "flash_attention_int8")
 
 
 def fail(msg: str) -> None:
@@ -91,6 +122,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from tweediemix_tpu_torch.ops import cuda_build
@@ -98,11 +131,15 @@ def phase_build():
     log(f"gpu: {gpu_name_and_power()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    cuda_build.load_library("flash_attention")
-    log(f"kernel build: flash_attention {time.perf_counter() - t0:.3f} s (nvcc, sm_90a)")
-    ptxas = cuda_build.BUILD_DIR / "flash_attention.ptxas.txt"
-    if ptxas.exists():
-        log(ptxas.read_text().strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+        list(pool.map(cuda_build.build_library, KERNELS))
+    for name in KERNELS:
+        cuda_build.load_library(name)
+    log(f"kernel build: {', '.join(KERNELS)} {time.perf_counter() - t0:.3f} s (nvcc, sm_90a)")
+    for name in KERNELS:
+        ptxas = cuda_build.BUILD_DIR / f"{name}.ptxas.txt"
+        if ptxas.exists():
+            log(ptxas.read_text().strip())
 
 
 def phase_kernels() -> list:
@@ -149,6 +186,99 @@ def phase_kernels() -> list:
         del q, k, v, q4, k4, v4, out, ref
         torch.cuda.empty_cache()
     return results
+
+
+def _exact_attention_chunked(q, k, v, rows=20):
+    """fp32 attention in chunks of BH rows (the full score tensor at BH=160,
+    4096² would take 10 GiB)."""
+    import torch
+
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    return torch.cat([flash_attention_reference(q[i : i + rows].float(), k[i : i + rows].float(),
+                                                v[i : i + rows].float())
+                      for i in range(0, q.shape[0], rows)])
+
+
+def phase_kernels_int8() -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from tweediemix_tpu_torch.ops.flash_attention import (
+        INT8_BLOCK_K,
+        flash_attention_int8,
+        flash_attention_int8_core,
+        flash_attention_int8_core_reference,
+        quantize_qkv_int8,
+    )
+
+    results = []
+    for bh, sq, sk, dh in INT8_MAIN_SHAPES + EDGE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(bh * 11 + sq + sk + dh)
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in (sq, sk, sk))
+        qkv8 = quantize_qkv_int8(q, k, v)
+        out = flash_attention_int8_core(*qkv8)
+        plain = flash_attention_int8_core_reference(*qkv8, INT8_BLOCK_K)  # fp32 output
+        wrapped = flash_attention_int8(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention_int8 non-finite output at {(bh, sq, sk, dh)}")
+        if not torch.equal(out, wrapped):
+            fail(f"flash_attention_int8's wrapper and its kernel disagree at {(bh, sq, sk, dh)}")
+        err = (out.float() - plain).abs().max().item()
+        rel = err / plain.abs().max().item()
+        corr, rel_exact, l2_exact = _against_exact(out, q, k, v)
+        big = sq * sk >= 1024 * 1024
+        reps = 20 if big else 50
+        ms = cuda_ms(lambda: flash_attention_int8_core(*qkv8), reps)
+        wrapper_ms = cuda_ms(lambda: flash_attention_int8(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: flash_attention_int8_core_reference(*qkv8, INT8_BLOCK_K), 3)
+        q4, k4, v4 = q[None], k[None], v[None]
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
+        ops = 4.0 * bh * sq * sk * dh
+        nbytes = 1.0 * bh * (sq + 2 * sk) * dh + 2.0 * bh * sq * dh  # int8 q/k/v, bf16 o
+        t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+        row = dict(shape=[bh, sq, sk, dh], max_abs_err=err, rel_err=rel, corr_exact=corr,
+                   rel_err_exact=rel_exact, l2_err_exact=l2_exact, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                   library_ms=None, sdpa_bf16_ms=sdpa_ms, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", tops=ops / ms / 1e9)
+        log(f"flash_attention_int8 {tuple(row['shape'])}: max_abs_err {err:.3e} rel_err {rel:.3e} "
+            f"vs exact corr {corr:.6f} rel {rel_exact:.3e} l2 {l2_exact:.3e}; ms {ms:.4f} wrapper_ms "
+            f"{wrapper_ms:.4f} plain_ms {plain_ms:.4f} sdpa_bf16_ms {sdpa_ms:.4f} bound_ms "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) {row['tops']:.1f} TOP/s")
+        if not rel <= FLASH_REL_TOL:
+            fail(f"flash_attention_int8 disagrees with its plain version at {(bh, sq, sk, dh)}: "
+                 f"max err / max |plain| = {rel:.3e} > {FLASH_REL_TOL}")
+        if not (corr > INT8_EXACT_CORR and l2_exact < INT8_EXACT_L2):
+            fail(f"flash_attention_int8 too far from exact attention at {(bh, sq, sk, dh)}: "
+                 f"corr {corr:.6f}, L2 err / L2 {l2_exact:.3e}")
+        results.append(row)
+        del q, k, v, q4, k4, v4, qkv8, out, plain, wrapped
+        torch.cuda.empty_cache()
+    for shape in INT8_JAX_TEST_SHAPES:  # the JAX package's test, on the card
+        bh, sq, sk, dh = shape
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in (sq, sk, sk))
+        corr, rel_exact, l2_exact = _against_exact(flash_attention_int8(q, k, v), q, k, v)
+        log(f"flash_attention_int8 {shape} vs exact (the JAX test's bounds): corr {corr:.6f} "
+            f"rel {rel_exact:.3e} l2 {l2_exact:.3e}")
+        if not (corr > INT8_EXACT_CORR and rel_exact < INT8_EXACT_REL):
+            fail(f"flash_attention_int8 outside the JAX test's bounds at {shape}: "
+                 f"corr {corr:.6f}, max err / max {rel_exact:.3e}")
+    return results
+
+
+def _against_exact(out, q, k, v):
+    """(corr, max err / max, L2 err / L2) of ``out`` against fp32 attention."""
+    import torch
+
+    e = _exact_attention_chunked(q, k, v).flatten()
+    o = out.float().flatten()
+    corr = torch.corrcoef(torch.stack([o, e]))[0, 1].item()
+    return (corr, ((o - e).abs().max() / e.abs().max()).item(),
+            ((o - e).norm() / e.norm()).item())
 
 
 def _random_embeds(n_concepts, ctx_len, ctx_dim, pool_dim, device, seed):
@@ -260,6 +390,63 @@ def phase_reference():
              f"{RESAMPLE_RATIO_TOL} x the plain bf16 path's {rel_plain:.3e}")
 
 
+def phase_reference_w8a8() -> dict:
+    """Small W8A8 UNets ("int8" and "int8_conv") with the int8 attention
+    core, whose self-attention reaches the int8 kernel (1024 tokens, dh=64):
+    the card (bf16) against the same int8 weights on the CPU (fp32), held
+    against the plain bf16 W8A8 path's distance from the same CPU fp32 run."""
+    import torch
+
+    from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
+
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              cross_attention_dim=64, pooled_projection_dim=64, concept_slots=4)
+    h = w = 64
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn((2, h, w, 4), generator=gen)
+    ctx = 0.2 * torch.randn((2, 9, 64), generator=gen)
+    pooled = 0.2 * torch.randn((2, 64), generator=gen)
+    tids = torch.tensor([[512.0, 512, 0, 0, 512, 512]]).expand(2, 6)
+    idx = torch.tensor([0, 2])
+    args = (x, 501, ctx, pooled, tids, idx)
+    out = {}
+    os.environ["TWEEDIEMIX_FLASH_INT8"] = "1"
+    try:
+        for quant in ("int8", "int8_conv"):
+            torch.manual_seed(5)
+            cpu = UNet2DConditionModel(UNetConfig.tiny(quant=quant, **kw), device="cpu")
+            cpu16 = UNet2DConditionModel(UNetConfig.tiny(quant=quant, dtype=torch.bfloat16, **kw),
+                                         device="cpu")
+            gpu = UNet2DConditionModel(UNetConfig.tiny(quant=quant, dtype=torch.bfloat16, **kw),
+                                       device="cuda")
+            cpu16.load_state_dict(cpu.state_dict())
+            gpu.load_state_dict(cpu.state_dict())
+            with torch.inference_mode():
+                want = cpu(*args)
+                plain16 = cpu16(*args)
+                flash_attention.launches = flash_attention_int8.launches = 0
+                got = gpu(*(a.cuda() if torch.is_tensor(a) else a for a in args)).cpu()
+            scale = want.abs().max()
+            rel_card = ((got - want).abs().max() / scale).item()
+            rel_plain = ((plain16 - want).abs().max() / scale).item()
+            sites = flash_sites_per_call(gpu.config, (h, w))
+            launches = (flash_attention_int8.launches, flash_attention.launches)
+            log(f"reference: small W8A8 UNet ({quant}, int8 core) eps, max err / max |eps| "
+                f"against CPU fp32: card bf16 (kernels) {rel_card:.3e}, CPU bf16 (plain) "
+                f"{rel_plain:.3e}; int8/bf16 flash launches {launches}")
+            if not (torch.isfinite(got).all() and rel_card <= W8A8_RATIO_TOL * rel_plain):
+                fail(f"small W8A8 UNet ({quant}) on the card is {rel_card:.3e} from the CPU, "
+                     f"more than {W8A8_RATIO_TOL} x the plain bf16 path's {rel_plain:.3e}")
+            if sites == 0 or launches != (sites, 0):
+                fail(f"small W8A8 UNet ({quant}): int8/bf16 flash launches {launches}, "
+                     f"expected ({sites}, 0)")
+            out[quant] = dict(rel_card=rel_card, rel_plain_bf16=rel_plain)
+    finally:
+        os.environ.pop("TWEEDIEMIX_FLASH_INT8", None)
+    return out
+
+
 def flash_sites_per_call(ucfg, latent_hw) -> int:
     """Self-attentions of one UNet call that the dispatcher sends to the
     flash kernel."""
@@ -342,14 +529,107 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
     decode_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     log(f"decode peak above the resident weights and latent: {decode_gib:.3f} GiB")
-    return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib,
-                profile=phase_profile(pipe, embeds))
+    fcfg = pipe.fusion_config
+    calls = {"fused_batch4": (embeds.concept_ctx, embeds.concept_pooled,
+                              torch.arange(fcfg.num_concepts + 1, device="cuda")),
+             "joint_batch2": (embeds.joint_ctx, embeds.joint_pooled,
+                              torch.zeros(2, dtype=torch.long, device="cuda"))}
+    profile = {label: profile_call(pipe, label, *call) for label, call in calls.items()}
+    return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib, profile=profile)
+
+
+def phase_w8a8_main_path() -> dict:
+    """The main path in W8A8 at four seeds: int8 transformer matmuls with
+    static per-site scales calibrated on the card, the int8 attention core."""
+    import torch
+
+    from tweediemix_tpu_torch.fusion.pipeline import TweedieMixPipeline
+    from tweediemix_tpu_torch.fusion.sampler import FusionConfig
+    from tweediemix_tpu_torch.models.unet2d import UNetConfig
+    from tweediemix_tpu_torch.models.vae import VAEConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
+    from tweediemix_tpu_torch.ops.quant import calibrate, load_static_scales, quant_sites
+
+    n, seeds = 3, 4
+    ucfg = UNetConfig.sdxl(concept_slots=n + 1, dtype=torch.bfloat16, quant="int8")
+    fcfg = FusionConfig(n_timesteps=50, guidance_scale=0.8, t_cond=0.2, resampling_steps=10,
+                        jumping_steps=5, height=1024, width=1024, num_concepts=n)
+    expected = expected_flash_launches(ucfg, fcfg)
+    t0 = time.perf_counter()
+    pipe = TweedieMixPipeline.from_random_weights(ucfg, VAEConfig.sdxl(), fcfg, seed=0,
+                                                  device="cuda")
+    torch.cuda.synchronize()
+    unet_gib = sum(t.numel() * t.element_size() for t in
+                   list(pipe.unet.parameters()) + list(pipe.unet.buffers())) / 2**30
+    log(f"W8A8 main path: UNet {unet_gib:.3f} GiB on the card ({len(quant_sites(pipe.unet))} "
+        f"int8 sites), built in {time.perf_counter() - t0:.1f} s")
+
+    # static scales for these weights, as tools/calibrate_quant.py makes them
+    h, w = fcfg.latent_hw
+    b = n + 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((b, h, w, 4), generator=gen, device="cuda")
+    ctx = 0.1 * torch.randn((b, 77, 2048), generator=gen, device="cuda")
+    pooled = 0.1 * torch.randn((b, 1280), generator=gen, device="cuda")
+    tids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]], device="cuda").expand(b, 6)
+    idx = torch.arange(b, device="cuda")
+    t0 = time.perf_counter()
+    table = calibrate(pipe.unet, [(x, t, ctx, pooled, tids, idx) for t in (999, 501, 1)],
+                      margin=1.25)
+    found = load_static_scales(pipe.unet, table)
+    vals = sorted(table.values())
+    log(f"W8A8 calibration: {found} sites in {time.perf_counter() - t0:.2f} s, abs-max x 1.25 "
+        f"min {vals[0]:.4g} median {vals[len(vals) // 2]:.4g} max {vals[-1]:.4g}")
+    if found != 442:
+        fail(f"calibration set {found} static scales, expected 442")
+
+    embeds = _random_embeds(n, 77, 2048, 1280, "cuda", seed=0)
+    fg = _half_masks(n, fcfg.height, fcfg.width, "cuda")
+    runs = []
+    os.environ["TWEEDIEMIX_FLASH_INT8"] = "1"
+    try:
+        for run in range(2):  # a warm call, then the timed one
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = flash_attention_int8.launches = 0
+            t0 = time.perf_counter()
+            img = pipe.sample(embeds, seed=run, fg_masks=fg, num_seeds=seeds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = flash_attention_int8.launches
+            stats = dict(
+                s_per_call=wall, s_per_image=wall / seeds, int8_launches=launches,
+                bf16_launches=flash_attention.launches,
+                phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
+                max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                image_mean=img.float().mean().item(),
+                latent_absmax=pipe.last_latent.abs().max().item(),
+            )
+            log(f"W8A8 main path {'timed' if run else 'warm'} run: {json.dumps(stats)}")
+            if tuple(img.shape) != (seeds, 1024, 1024, 3):
+                fail(f"W8A8 image shape {tuple(img.shape)}")
+            if not torch.isfinite(pipe.last_latent).all() or not torch.isfinite(img).all():
+                fail("W8A8: non-finite latent or image")
+            if img.min().item() < 0.0 or img.max().item() > 1.0:
+                fail("W8A8: image outside [0, 1]")
+            if launches != expected or flash_attention.launches != 0:
+                fail(f"W8A8 main path: int8 kernel launched {launches} times (expected "
+                     f"{expected}), bf16 kernel {flash_attention.launches} (expected 0)")
+            runs.append(stats)
+        call = (embeds.concept_ctx, embeds.concept_pooled, torch.arange(b, device="cuda"))
+        profile = {"w8a8_batch4_int8_core": profile_call(pipe, "w8a8_batch4_int8_core", *call)}
+        os.environ["TWEEDIEMIX_FLASH_INT8"] = "0"
+        profile["w8a8_batch4_bf16_core"] = profile_call(pipe, "w8a8_batch4_bf16_core", *call)
+    finally:
+        os.environ.pop("TWEEDIEMIX_FLASH_INT8", None)
+    return dict(runs=runs, expected_launches=expected, unet_gib=unet_gib, profile=profile)
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
+    ("flash_attention_int8", ("flash_int8_fwd_kernel",)),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("layout", ("nchwToNhwc", "nhwcToNchw")),
     ("convolution", ("fprop", "conv", "dgrad", "winograd")),
+    ("gemm_int8", ("s8s8", "i8i8", "imma", "_s8_", "_i8_", "int8")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
     ("norm", ("norm",)),
     ("softmax", ("softmax",)),
@@ -365,59 +645,49 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def phase_profile(pipe, embeds) -> dict:
-    """One fused-phase UNet call (batch N+1 = 4, cross-K/V cache on) and one
-    joint call (batch 2) under torch.profiler: device time by kernel class
-    and the top kernels; the device's idle share is taken against the mean
-    wall time of the same call run without the profiler."""
+def profile_call(pipe, label, ctx, pooled, idx) -> dict:
+    """One UNet call (cross-K/V cache on) under torch.profiler: device time
+    by kernel class and the top kernels; the device's idle share is taken
+    against the mean wall time of the same call run without the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fcfg = pipe.fusion_config
-    h, w = fcfg.latent_hw
-    out = {}
-    calls = {
-        "fused_batch4": (embeds.concept_ctx, embeds.concept_pooled,
-                         torch.arange(fcfg.num_concepts + 1, device="cuda")),
-        "joint_batch2": (embeds.joint_ctx, embeds.joint_pooled,
-                         torch.zeros(2, dtype=torch.long, device="cuda")),
-    }
-    for label, (ctx, pooled, idx) in calls.items():
-        x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
-        with torch.inference_mode():
-            kv = pipe._kv_builder(ctx, idx)
+    h, w = pipe.fusion_config.latent_hw
+    x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
+    with torch.inference_mode():
+        kv = pipe._kv_builder(ctx, idx)
+        pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+        torch.cuda.synchronize()
+        # wall time without the profiler, whose host overhead inflates it
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
             torch.cuda.synchronize()
-            # wall time without the profiler, whose host overhead inflates it
-            t0 = time.perf_counter()
-            for _ in range(3):
-                pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
-                torch.cuda.synchronize()
-                profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name, by_class = {}, {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = e.time_range.elapsed_us()
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + us / 1e3)
-            cls = _kernel_class(e.name)
-            by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
-        busy_ms = sum(by_class.values())
-        top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:10]
-        out[label] = dict(
-            wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, device_busy_ms=busy_ms,
-            device_idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
-            by_class_ms={k: round(v, 3) for k, v in sorted(by_class.items(), key=lambda i: -i[1])},
-            top_kernels=[dict(name=n[:90], count=c, ms=round(t, 3)) for n, (c, t) in top],
-        )
-        log(f"profile {label}: {json.dumps(out[label])}")
+            profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, by_class = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us / 1e3)
+        cls = _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+    busy_ms = sum(by_class.values())
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:12]
+    out = dict(
+        wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
+        by_class_ms={k: round(v, 3) for k, v in sorted(by_class.items(), key=lambda i: -i[1])},
+        top_kernels=[dict(name=n[:110], count=c, ms=round(t, 3)) for n, (c, t) in top],
+    )
+    log(f"profile {label}: {json.dumps(out)}")
     return out
 
 
@@ -432,22 +702,33 @@ def main() -> None:
 
     phase_build()
     kernel_rows = phase_kernels()
+    int8_rows = phase_kernels_int8()
     phase_reference()
+    reference_w8a8 = phase_reference_w8a8()
     main_path = phase_main_path()
-    head = kernel_rows[0]
-    entry = dict(
-        name="flash_attention", route="cuda",
-        source="tweediemix_tpu_torch/csrc/flash_attention.cu",
-        replaces="tweediemix_tpu/ops/flash_attention.py:37",
-        launches=main_path["runs"][0]["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in kernel_rows),
-        rel_err=max(r["rel_err"] for r in kernel_rows),
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
-        shape=head["shape"], shapes=kernel_rows,
-    )
-    log(json.dumps(dict(main_path=main_path)))
-    log(json.dumps(dict(kernels=[entry])))
+    torch.cuda.empty_cache()
+    w8a8 = phase_w8a8_main_path()
+
+    def entry(name, source, replaces, launches, rows, **extra):
+        head = rows[0]  # the first main-path shape
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+                    rel_err=max(r["rel_err"] for r in rows), ms=head["ms"],
+                    plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                    bound_by=head["bound_by"], library_ms=head["library_ms"],
+                    shape=head["shape"], **extra, shapes=rows)
+
+    kernels = [
+        entry("flash_attention", "tweediemix_tpu_torch/csrc/flash_attention.cu",
+              "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
+              kernel_rows),
+        entry("flash_attention_int8", "tweediemix_tpu_torch/csrc/flash_attention_int8.cu",
+              "tweediemix_tpu/ops/flash_attention.py:113", w8a8["runs"][-1]["int8_launches"],
+              int8_rows, wrapper_ms=int8_rows[0]["wrapper_ms"],
+              sdpa_bf16_ms=int8_rows[0]["sdpa_bf16_ms"]),
+    ]
+    log(json.dumps(dict(main_path=main_path, reference_w8a8=reference_w8a8, w8a8_main_path=w8a8)))
+    log(json.dumps(dict(kernels=kernels)))
     log(gpu_name_and_power())
     log(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                              count=torch.cuda.device_count()))))

@@ -5,22 +5,33 @@ machine, which has no JAX:
 ``python -m pytest --noconftest tests/test_torch_port_kernels.py -m cuda``.
 Tests marked ``cuda`` need a CUDA card and nvcc and skip elsewhere.
 Tolerance on the card: max |kernel - plain| / max |plain| <= 1e-2, the plain
-version in fp32 on the same bf16 inputs. The limit is relative because randn
+version in fp32 on the same bf16 inputs (for the int8 kernel: on the same
+int8 inputs, with the kernel's block_k). The limit is relative because randn
 inputs give outputs of std ~ sqrt(e/Sk), far below 1; bf16 output rounding
 alone reads up to ~4e-3.
 """
 
+import ctypes
 import shutil
 
 import pytest
 import torch
 
 from tweediemix_tpu_torch.ops import cuda_build
+from tweediemix_tpu_torch.ops import flash_attention as flash_module
 from tweediemix_tpu_torch.ops.attention import attention
 from tweediemix_tpu_torch.ops.flash_attention import (
+    INT8_BLOCK_K,
+    bind_int8,
     flash_attention,
+    flash_attention_int8,
+    flash_attention_int8_core,
+    flash_attention_int8_core_reference,
     flash_attention_reference,
+    quantize_qkv_int8,
 )
+
+INT8_TOL = 1e-2
 
 
 def _card():
@@ -72,6 +83,85 @@ def test_attention_dispatch_launches_kernel_on_card():
     assert flash_attention.launches == before + 1
 
 
+def _int8_case(bh, sq, sk, dh, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+               for s in (sq, sk, sk))
+    qkv8 = quantize_qkv_int8(q, k, v)
+    plain = flash_attention_int8_core_reference(*qkv8, INT8_BLOCK_K)
+    return (q, k, v), qkv8, plain
+
+
+def _rel(out, plain):
+    return (out.float() - plain).abs().max().item() / plain.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bh,sq,sk,dh",
+    [(4, 1024, 1024, 64), (2, 300, 300, 128), (2, 1024, 77, 256), (1, 65, 4100, 64),
+     (3, 1, 1, 128), (2, 200, 333, 256)],
+)
+def test_int8_kernel_matches_plain_on_card(bh, sq, sk, dh):
+    _card()
+    (q, k, v), _, plain = _int8_case(bh, sq, sk, dh, bh + sq + sk + dh)
+    before = flash_attention_int8.launches
+    out = flash_attention_int8(q, k, v)
+    assert flash_attention_int8.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert _rel(out, plain) <= INT8_TOL
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_what_it_does_not_take_on_card():
+    _card()
+    q = torch.zeros((2, 64, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention_int8(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):
+        flash_attention_int8(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError):
+        q32 = q[..., :32].contiguous()
+        flash_attention_int8(q32, q32, q32)
+    q8 = torch.zeros((2, 64, 64), device="cuda", dtype=torch.int8)
+    with pytest.raises(ValueError):
+        flash_attention_int8_core(q8, q8, q8, torch.ones(3, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_int8_knob_dispatches_to_the_int8_kernel_on_card(monkeypatch):
+    _card()
+    q = torch.randn((2, 1024, 64), device="cuda").to(torch.bfloat16)
+    monkeypatch.setenv("TWEEDIEMIX_FLASH_INT8", "1")
+    bf16, int8 = flash_attention.launches, flash_attention_int8.launches
+    attention(q, q, q)
+    assert (flash_attention.launches, flash_attention_int8.launches) == (bf16, int8 + 1)
+    monkeypatch.setenv("TWEEDIEMIX_FLASH_INT8", "0")
+    attention(q, q, q)
+    assert (flash_attention.launches, flash_attention_int8.launches) == (bf16 + 1, int8 + 1)
+
+
+@pytest.mark.cuda
+def test_int8_check_catches_a_skipped_key_tile_on_card(tmp_path, monkeypatch):
+    """Mutation check: a copy of the int8 kernel that skips its second key
+    tile must fail the comparison with the plain version."""
+    _card()
+    loop = "for (int n0 = 0; n0 < sk; n0 += kBlockN) {"
+    src = (cuda_build.CSRC_DIR / "flash_attention_int8.cu").read_text()
+    assert src.count(loop) == 1
+    (tmp_path / "flash_attention_int8.cu").write_text(
+        src.replace(loop, loop + "\n    if (n0 == kBlockN) continue;"))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    lib = ctypes.CDLL(str(cuda_build.build_library("flash_attention_int8")))
+    monkeypatch.setattr(flash_module, "_launcher_int8", lambda: (lib, bind_int8(lib)))
+    _, qkv8, plain = _int8_case(40, 1024, 1024, 64, 7)
+    rel = _rel(flash_attention_int8_core(*qkv8), plain)
+    print(f"int8 kernel with its second key tile skipped: max err / max |plain| = {rel:.3e}")
+    assert rel > INT8_TOL
+
+
 def test_build_reuses_the_library_of_the_same_source(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
     path = cuda_build.library_path("flash_attention")
@@ -104,3 +194,17 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     out = attention(q, q, q)
     ref = flash_attention_reference(q, q, q)
     assert torch.equal(out, ref)
+
+
+def test_cpu_tensors_never_reach_the_int8_kernel(monkeypatch):
+    def no_library(name):
+        raise AssertionError("CPU tensors must take the plain version")
+
+    monkeypatch.setattr("tweediemix_tpu_torch.ops.flash_attention.load_library", no_library)
+    monkeypatch.setenv("TWEEDIEMIX_FLASH_INT8", "1")
+    q = torch.randn((2, 1024, 64)).to(torch.bfloat16)
+    counts = flash_attention.launches, flash_attention_int8.launches
+    out = attention(q, q, q)
+    assert torch.equal(out, flash_module.flash_attention_int8_reference(q, q, q))
+    assert out.dtype == torch.bfloat16
+    assert (flash_attention.launches, flash_attention_int8.launches) == counts

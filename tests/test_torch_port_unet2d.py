@@ -152,10 +152,12 @@ def test_converter_merges_self_attention_qkv():
         convert_params(broken, port)
 
 
-@pytest.mark.parametrize("option", [dict(quant="int8"), dict(remat=True),
+@pytest.mark.parametrize("option", [dict(quant="int4"), dict(remat=True),
                                     dict(detach_first_token_kv=True)])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
+    """The training options are not ported yet; quant takes only the JAX
+    package's modes ("int8", "int8_conv": tests/test_torch_port_quant.py)."""
+    with pytest.raises(ValueError if "quant" in option else NotImplementedError):
         port_unet2d.UNetConfig.micro(**option)
 
 

@@ -75,7 +75,10 @@ class TweedieMixPipeline:
         device="cuda",
     ) -> "TweedieMixPipeline":
         """A pipeline with seeded random (non-zero) weights, for runs at
-        full width before real weights are available."""
+        full width before real weights are available. Under
+        ``unet_config.quant`` the int8 weights are quantised from the fp32
+        draw; static activation scales are then set with
+        ``ops.quant.load_static_scales(pipe.unet, table)``."""
         device = resolve_device(device)
         torch.manual_seed(seed)
         unet = UNet2DConditionModel(unet_config, device=device)

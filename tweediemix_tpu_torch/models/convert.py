@@ -10,6 +10,11 @@ UNet and VAE hold (``model.init(...)["params"]``, as numpy arrays). The rules:
   factors keep their layout and names;
 * a self-attention's ``to_q``/``to_k``/``to_v`` kernels become one merged
   ``to_qkv`` weight [3·inner, C], built once here so no forward copies it;
+* where the module is quantised (``ops.quant.QLinear``/``QConv2d``: the
+  trees are the same with or without quant), each weight becomes
+  ``weight_q`` int8 and ``weight_scale`` fp32, quantised from the fp32
+  values before the module's dtype is applied, as the JAX package
+  quantises its fp32 kernels;
 * Flax scope names become the diffusers module paths the port uses
   (``down_blocks_1_attentions_0/transformer_blocks_0/ff/net_0_proj`` →
   ``down_blocks.1.attentions.0.transformer_blocks.0.ff.net.0.proj``).
@@ -26,6 +31,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from tweediemix_tpu_torch.ops.quant import quantize_weight_int8, quantize_weight_int8_conv
 
 _RENAMES = (
     (re.compile(r"(down_blocks|up_blocks)_(\d+)_(resnets|attentions|downsamplers|upsamplers)_(\d+)"),
@@ -71,22 +78,41 @@ def torch_layout(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
 
 
 def merge_self_attention_qkv(sd: Dict[str, torch.Tensor], want: Mapping) -> None:
-    """In place: where the module holds a merged ``to_qkv.weight`` (the
-    UNet's self-attention), stack the tree's ``to_q``/``to_k``/``to_v``
-    weights into it, q rows first, as the JAX module concatenates them."""
+    """In place: where the module holds a merged ``to_qkv`` (the UNet's
+    self-attention), stack the tree's ``to_q``/``to_k``/``to_v`` weights
+    into one ``to_qkv.weight``, q rows first, as the JAX module
+    concatenates them (``quantize_weights`` then quantises it if the module
+    is quantised)."""
     for key in want:
-        if not key.endswith(".to_qkv.weight"):
+        if not key.endswith((".to_qkv.weight", ".to_qkv.weight_q")):
             continue
-        prefix = key[: -len("to_qkv.weight")]
+        prefix = key[: key.rindex("to_qkv.")]
         parts = [f"{prefix}{p}.weight" for p in ("to_q", "to_k", "to_v")]
         if all(p in sd for p in parts):
-            sd[key] = torch.cat([sd.pop(p) for p in parts], dim=0)
+            sd[f"{prefix}to_qkv.weight"] = torch.cat([sd.pop(p) for p in parts], dim=0)
+
+
+def quantize_weights(sd: Dict[str, torch.Tensor], want: Mapping) -> None:
+    """In place: for each quantised module of ``want`` (a ``weight_q``
+    key), replace the fp32 ``weight`` by its int8 form and scales; the float
+    weight stays only where the module keeps one too."""
+    for key in want:
+        if not key.endswith(".weight_q"):
+            continue
+        prefix = key[: -len("weight_q")]
+        w = sd.get(f"{prefix}weight")
+        if w is None:
+            continue
+        quantize = quantize_weight_int8 if w.ndim == 2 else quantize_weight_int8_conv
+        sd[key], sd[f"{prefix}weight_scale"] = quantize(w)
+        if f"{prefix}weight" not in want:
+            del sd[f"{prefix}weight"]
 
 
 def convert_params(params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
     """Flax parameter tree (the JAX UNet's, VAE's or one block's) →
-    ``module``'s state_dict as fp32 CPU tensors; raises listing every
-    missing, unexpected or mis-shaped key."""
+    ``module``'s state_dict as CPU tensors (fp32, and int8 where quantised);
+    raises listing every missing, unexpected or mis-shaped key."""
     sd = {}
     for path, arr in flatten_tree(params).items():
         name = torch_name(path)
@@ -95,6 +121,7 @@ def convert_params(params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor
         sd[name] = torch.tensor(np.asarray(torch_layout(path, arr), dtype=np.float32))
     want = module.state_dict()
     merge_self_attention_qkv(sd, want)
+    quantize_weights(sd, want)
     problems = [f"missing: {k} {tuple(want[k].shape)}" for k in sorted(set(want) - set(sd))]
     problems += [f"unexpected: {k} {tuple(sd[k].shape)}" for k in sorted(set(sd) - set(want))]
     problems += [

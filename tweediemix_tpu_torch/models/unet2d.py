@@ -16,6 +16,15 @@ the concept extensions of the JAX package:
   picks the slot, so the N-concept fused forward is one batched call.
 * LoRA concepts: stacked rank-r ``to_{q,k,v,out}_lora_{down,up}`` factors on
   both attentions (slot 0 = zero delta).
+* W8A8 serving (``quant="int8"``): the JAX package's quantised sites become
+  ``ops.quant.QLinear`` (attn1's ``to_qkv`` and ``to_out.0``, attn2's
+  ``to_q`` and ``to_out.0``, a non-stacked attn2's ``to_k``/``to_v``, the
+  GEGLU ``ff.net.0.proj`` and ``ff.net.2``, ``proj_in`` and ``proj_out``);
+  ``"int8_conv"`` adds ``ops.quant.QConv2d`` for the resnets' ``conv1``/
+  ``conv2`` and the down/up-sampler convs. Every other weight stays exact:
+  ``time_emb_proj``, ``conv_shortcut``, ``conv_in``/``conv_out``, the K/V
+  stacks, the embeddings. Each ``QLinear`` is told its JAX site key
+  (``quant_site``), under which static activation scales are stored.
 
 The public forward takes and returns NHWC latents [B, h, w, 4] like the JAX
 model; inside, activations are NCHW.
@@ -24,6 +33,7 @@ model; inside, activations are NCHW.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +43,7 @@ from torch import nn
 from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.models.embeddings import TimestepEmbedding, timestep_embedding
 from tweediemix_tpu_torch.ops.attention import multi_head_attention
+from tweediemix_tpu_torch.ops.quant import QUANT_MODES, QConv2d, QLinear
 from tweediemix_tpu_torch.ops.stacked import lora_delta, stacked_linear
 
 
@@ -64,17 +75,20 @@ class UNetConfig:
     concept_slots: int = 0
     lora_slots: int = 0
     lora_rank: int = 4
-    # not ported yet: training (detach_first_token_kv, remat) and W8A8
-    # serving (quant) raise when set
+    # not ported yet: training (detach_first_token_kv, remat) raises when set
     detach_first_token_kv: bool = False
     remat: bool = False
+    # W8A8 serving: None, "int8" (transformer matmuls) or "int8_conv" (also
+    # the resnet and resampler 3x3 convs)
     quant: Optional[str] = None
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        for name in ("detach_first_token_kv", "remat", "quant"):
+        for name in ("detach_first_token_kv", "remat"):
             if getattr(self, name):
                 raise NotImplementedError(f"UNetConfig.{name} is not ported to the torch package yet")
+        if self.quant is not None and self.quant not in QUANT_MODES:
+            raise ValueError(f"UNetConfig.quant must be None or one of {QUANT_MODES}, got {self.quant!r}")
 
     @property
     def time_embed_dim(self) -> int:
@@ -127,6 +141,21 @@ class UNetConfig:
         return UNetConfig(**defaults)
 
 
+def linear(din: int, dout: int, bias: bool = True, quant: Optional[str] = None,
+           keep_weight: bool = False) -> nn.Module:
+    """``nn.Linear``, or its W8A8 form under ``quant``."""
+    if quant:
+        return QLinear(din, dout, bias=bias, keep_weight=keep_weight)
+    return nn.Linear(din, dout, bias=bias)
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1, quant: Optional[str] = None) -> nn.Module:
+    """3x3 conv with padding 1, quantised under ``"int8_conv"`` only."""
+    if quant == "int8_conv":
+        return QConv2d(cin, cout, stride=stride)
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+
+
 class Attention(nn.Module):
     """QKV attention with optional concept-stacked K/V and LoRA deltas."""
 
@@ -139,6 +168,7 @@ class Attention(nn.Module):
         concept_slots: int = 0,
         lora_slots: int = 0,
         lora_rank: int = 4,
+        quant: Optional[str] = None,
     ):
         super().__init__()
         inner = heads * dim_head
@@ -148,17 +178,19 @@ class Attention(nn.Module):
         self.stacked = bool(concept_slots) and self.is_cross
         self.lora_slots = lora_slots
         if not self.is_cross:
-            self.to_qkv = nn.Linear(query_dim, 3 * inner, bias=False)
+            self.to_qkv = linear(query_dim, 3 * inner, bias=False, quant=quant)
         elif self.stacked:
-            self.to_q = nn.Linear(query_dim, inner, bias=False)
+            self.to_q = linear(query_dim, inner, bias=False, quant=quant)
             std = ctx_dim**-0.5
             self.to_k_stack = nn.Parameter(torch.randn(concept_slots, ctx_dim, inner) * std)
             self.to_v_stack = nn.Parameter(torch.randn(concept_slots, ctx_dim, inner) * std)
         else:
-            self.to_q = nn.Linear(query_dim, inner, bias=False)
-            self.to_k = nn.Linear(ctx_dim, inner, bias=False)
-            self.to_v = nn.Linear(ctx_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+            self.to_q = linear(query_dim, inner, bias=False, quant=quant)
+            # the float weight stays beside the int8 one: precompute_cross_kv
+            # projects with it, as the JAX package's does even under quant
+            self.to_k = linear(ctx_dim, inner, bias=False, quant=quant, keep_weight=True)
+            self.to_v = linear(ctx_dim, inner, bias=False, quant=quant, keep_weight=True)
+        self.to_out = nn.ModuleList([linear(inner, query_dim, quant=quant)])
         if lora_slots:
             dims = dict(to_q=(query_dim, inner), to_k=(ctx_dim, inner),
                         to_v=(ctx_dim, inner), to_out=(inner, query_dim))
@@ -172,11 +204,15 @@ class Attention(nn.Module):
         return lora_delta(inp, getattr(self, f"{name}_lora_down"),
                           getattr(self, f"{name}_lora_up"), idx)
 
-    def kv(self, ctx: torch.Tensor, idx: torch.Tensor):
-        """This cross-attention's K and V rows for context ``ctx``."""
+    def kv(self, ctx: torch.Tensor, idx: torch.Tensor, precomputed: bool = False):
+        """This cross-attention's K and V rows for context ``ctx``. The
+        precomputed cache (``precomputed``) takes a non-stacked K/V from the
+        float weight even under quant, as the JAX package does."""
         if self.stacked:
             k = stacked_linear(ctx, self.to_k_stack, idx)
             v = stacked_linear(ctx, self.to_v_stack, idx)
+        elif precomputed:
+            k, v = F.linear(ctx, self.to_k.weight), F.linear(ctx, self.to_v.weight)
         else:
             k, v = self.to_k(ctx), self.to_v(ctx)
         if self.lora_slots:
@@ -208,9 +244,9 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, quant: Optional[str] = None):
         super().__init__()
-        self.proj = nn.Linear(dim, hidden * 2)
+        self.proj = linear(dim, hidden * 2, quant=quant)
 
     def forward(self, x):
         # first half is x, second half the gate; exact (erf) GELU
@@ -221,9 +257,10 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU MLP (diffusers ``FeedForward`` with geglu activation)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, quant: Optional[str] = None):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4, quant), nn.Identity(),
+                                  linear(dim * 4, dim, quant=quant)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -231,16 +268,16 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim, heads, dim_head, cross_attention_dim,
-                 concept_slots=0, lora_slots=0, lora_rank=4):
+                 concept_slots=0, lora_slots=0, lora_rank=4, quant=None):
         super().__init__()
-        lora = dict(lora_slots=lora_slots, lora_rank=lora_rank)
+        kw = dict(lora_slots=lora_slots, lora_rank=lora_rank, quant=quant)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, dim_head, **lora)
+        self.attn1 = Attention(dim, heads, dim_head, **kw)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim,
-                               concept_slots=concept_slots, **lora)
+                               concept_slots=concept_slots, **kw)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, quant)
 
     def forward(self, x, ctx, concept_idx, kv=None):
         x = x + self.attn1(self.norm1(x), None, concept_idx)
@@ -253,17 +290,17 @@ class Transformer2DModel(nn.Module):
     ``use_linear_projection=True``)."""
 
     def __init__(self, channels, heads, dim_head, num_layers, cross_attention_dim,
-                 norm_num_groups, concept_slots=0, lora_slots=0, lora_rank=4):
+                 norm_num_groups, concept_slots=0, lora_slots=0, lora_rank=4, quant=None):
         super().__init__()
         inner = heads * dim_head
         self.norm = nn.GroupNorm(norm_num_groups, channels, eps=1e-6)
-        self.proj_in = nn.Linear(channels, inner)
+        self.proj_in = linear(channels, inner, quant=quant)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
-                                  concept_slots, lora_slots, lora_rank)
+                                  concept_slots, lora_slots, lora_rank, quant)
             for _ in range(num_layers)
         ])
-        self.proj_out = nn.Linear(inner, channels)
+        self.proj_out = linear(inner, channels, quant=quant)
 
     def forward(self, x, ctx, concept_idx, kv=None):
         """x: NCHW; kv: (k [L, B, S, inner], v [L, B, S, inner]) or None."""
@@ -278,13 +315,13 @@ class Transformer2DModel(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    def __init__(self, in_channels, out_channels, temb_channels, norm_num_groups):
+    def __init__(self, in_channels, out_channels, temb_channels, norm_num_groups, quant=None):
         super().__init__()
         self.norm1 = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = conv3x3(in_channels, out_channels, quant=quant)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels)
         self.norm2 = nn.GroupNorm(norm_num_groups, out_channels, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = conv3x3(out_channels, out_channels, quant=quant)
         self.conv_shortcut = (
             nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
@@ -299,18 +336,18 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    def __init__(self, channels):
+    def __init__(self, channels, quant=None):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = conv3x3(channels, channels, stride=2, quant=quant)
 
     def forward(self, x):
         return self.conv(x)
 
 
 class Upsample2D(nn.Module):
-    def __init__(self, channels):
+    def __init__(self, channels, quant=None):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = conv3x3(channels, channels, quant=quant)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -336,7 +373,8 @@ class UNet2DConditionModel(nn.Module):
     forward(sample [B,h,w,4], timestep (int or [B]), encoder_hidden_states
     [B,S,ctx], pooled_projections [B,pooled], time_ids [B,6], concept_idx [B],
     cross_kv) → eps [B,h,w,4] fp32. Parameters are created on ``device`` in
-    ``config.dtype``.
+    ``config.dtype``; under ``quant`` the int8 weights are quantised from the
+    fp32 draw before that cast.
     """
 
     def __init__(self, config: UNetConfig, device="cuda"):
@@ -344,6 +382,9 @@ class UNet2DConditionModel(nn.Module):
         self.config = cfg = config
         with torch.device(resolve_device(device)):
             self._build(cfg)
+        for name, m in self.named_modules():
+            if isinstance(m, QLinear):
+                m.site = quant_site(name)
         self.to(cfg.dtype)
 
     def _build(self, cfg: UNetConfig):
@@ -358,6 +399,7 @@ class UNet2DConditionModel(nn.Module):
                 channels, heads, cfg.block_out_channels[level] // heads,
                 cfg.transformer_layers_per_block[level], cfg.cross_attention_dim,
                 cfg.norm_num_groups, cfg.concept_slots, cfg.lora_slots, cfg.lora_rank,
+                cfg.quant,
             )
 
         n_levels = len(cfg.block_out_channels)
@@ -368,21 +410,21 @@ class UNet2DConditionModel(nn.Module):
             out_ch = cfg.block_out_channels[level]
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block):
-                resnets.append(ResnetBlock2D(in_ch, out_ch, temb_ch, cfg.norm_num_groups))
+                resnets.append(ResnetBlock2D(in_ch, out_ch, temb_ch, cfg.norm_num_groups, cfg.quant))
                 if block_type == "CrossAttnDownBlock2D":
                     attns.append(transformer(level, out_ch))
                 in_ch = out_ch
                 skip_channels.append(out_ch)
             samplers = []
             if level < n_levels - 1:
-                samplers.append(Downsample2D(out_ch))
+                samplers.append(Downsample2D(out_ch, cfg.quant))
                 skip_channels.append(out_ch)
             self.down_blocks.append(UNetBlock(resnets, attns, downsamplers=samplers))
 
         mid_ch = cfg.block_out_channels[-1]
         self.mid_block = UNetBlock(
-            [ResnetBlock2D(mid_ch, mid_ch, temb_ch, cfg.norm_num_groups),
-             ResnetBlock2D(mid_ch, mid_ch, temb_ch, cfg.norm_num_groups)],
+            [ResnetBlock2D(mid_ch, mid_ch, temb_ch, cfg.norm_num_groups, cfg.quant),
+             ResnetBlock2D(mid_ch, mid_ch, temb_ch, cfg.norm_num_groups, cfg.quant)],
             [transformer(n_levels - 1, mid_ch)],
         )
 
@@ -395,11 +437,11 @@ class UNet2DConditionModel(nn.Module):
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block + 1):
                 resnets.append(ResnetBlock2D(in_ch + skip_channels.pop(), out_ch, temb_ch,
-                                             cfg.norm_num_groups))
+                                             cfg.norm_num_groups, cfg.quant))
                 if block_type == "CrossAttnUpBlock2D":
                     attns.append(transformer(level, out_ch))
                 in_ch = out_ch
-            samplers = [Upsample2D(out_ch)] if i < n_levels - 1 else []
+            samplers = [Upsample2D(out_ch, cfg.quant)] if i < n_levels - 1 else []
             self.up_blocks.append(UNetBlock(resnets, attns, upsamplers=samplers))
 
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, cfg.block_out_channels[0], eps=1e-5)
@@ -465,6 +507,27 @@ class UNet2DConditionModel(nn.Module):
         return x.permute(0, 2, 3, 1).float()
 
 
+_SITE_RENAMES = (
+    (re.compile(r"(down_blocks|up_blocks)\.(\d+)\.attentions\.(\d+)"), r"\1_\2_attentions_\3"),
+    (re.compile(r"mid_block\.attentions\.(\d+)"), r"mid_block_attentions_\1"),
+    (re.compile(r"transformer_blocks\.(\d+)"), r"transformer_blocks_\1"),
+    (re.compile(r"\bto_out\.0$"), "to_out_0"),
+    (re.compile(r"\bff\.net\.0\.proj$"), "ff.net_0_proj"),
+    (re.compile(r"\bff\.net\.2$"), "ff.net_2"),
+    (re.compile(r"\battn1\.to_qkv$"), "attn1.qkv"),
+)
+
+
+def quant_site(name: str) -> str:
+    """A quantised matmul's module name → the JAX package's site key
+    (``"/".join(scope.path)``; the merged self-attention site ends in
+    ``/qkv``): ``down_blocks.1.attentions.0.transformer_blocks.0.ff.net.2``
+    → ``down_blocks_1_attentions_0/transformer_blocks_0/ff/net_2``."""
+    for pattern, repl in _SITE_RENAMES:
+        name = pattern.sub(repl, name)
+    return name.replace(".", "/")
+
+
 def cross_attention_names(cfg: UNetConfig):
     """(level, module name) of every Transformer2DModel, in call order."""
     names = []
@@ -487,7 +550,9 @@ def precompute_cross_kv(unet: UNet2DConditionModel, encoder_hidden_states, conce
 
     The context is constant across a sampling trajectory, so the per-row
     stacked-weight gather, the K/V projections and their LoRA deltas run
-    once per phase; the result goes to the UNet as ``cross_kv``.
+    once per phase; the result goes to the UNet as ``cross_kv``. A
+    non-stacked K/V is a plain float projection here even under quant, as
+    in the JAX package (its in-module path quantises).
 
     Returns {transformer_name: (k [L, B, S, inner], v [L, B, S, inner])}.
     """
@@ -497,6 +562,7 @@ def precompute_cross_kv(unet: UNet2DConditionModel, encoder_hidden_states, conce
         concept_idx = torch.zeros(ctx.shape[0], dtype=torch.long, device=ctx.device)
     cache = {}
     for _, name in cross_attention_names(cfg):
-        kvs = [blk.attn2.kv(ctx, concept_idx) for blk in unet.transformer(name).transformer_blocks]
+        kvs = [blk.attn2.kv(ctx, concept_idx, precomputed=True)
+               for blk in unet.transformer(name).transformer_blocks]
         cache[name] = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
     return cache

@@ -5,12 +5,17 @@ Counterpart of ``tweediemix_tpu/ops/attention.py``. The flash sites are the
 ones the JAX package dispatches: both sequence lengths >= 1024 and
 dh in {64, 128, 256} (the SDXL self-attention at the 4096- and 1024-token
 levels). On CUDA tensors they go to the Hopper kernel, on CPU tensors to its
-plain version. Cross-attention (77 keys) and every other site take the math
-path, which switches to query chunks when the fp32 score tensor would pass
-256 MiB. Head split/merge happens here, so model code only sees [B, S, D].
+plain version. ``TWEEDIEMIX_FLASH_INT8=1``, read on every call as the JAX
+package reads it, sends them to the int8 core instead (its kernel on CUDA,
+its plain version on the CPU). Cross-attention (77 keys) and every other
+site take the math path, which switches to query chunks when the fp32 score
+tensor would pass 256 MiB. Head split/merge happens here, so model code only
+sees [B, S, D].
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -50,7 +55,8 @@ def attention(q, k, v, scale: float | None = None) -> torch.Tensor:
     if scale is None:
         scale = dh**-0.5
     if uses_flash(sq, sk, dh):
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale,
+                               int8_qkpv=os.environ.get("TWEEDIEMIX_FLASH_INT8", "0") == "1")
     score_bytes = 4 * bh * sq * sk
     if score_bytes > SCORE_BYTES_CAP:
         chunk = min(max(1, SCORE_BYTES_CAP // (4 * bh * sk)), sq)

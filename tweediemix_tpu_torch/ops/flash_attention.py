@@ -1,5 +1,5 @@
-"""Non-causal flash attention: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Non-causal flash attention: two hand-written Hopper kernels (bf16, and
+the int8 core of the W8A8 serving path) and their plain PyTorch versions.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``tweediemix_tpu/ops/flash_attention.py::_flash_kernel``. It computes
@@ -13,7 +13,9 @@ devices of the TPU version (ones-column denominator, ``head_block``, block
 table, VMEM guard, bf16 rounding of the pre-scaled q) stay behind.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises when it
-cannot; it takes the plain version only for tensors on the CPU.
+cannot; it takes the plain version only for tensors on the CPU. The int8
+core (``flash_attention_int8``, ``csrc/flash_attention_int8.cu``) is
+described below, beside its functions.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from tweediemix_tpu_torch.ops.cuda_build import check_launch, load_library
 
 HEAD_DIMS = (64, 128, 256)
+NEG_INF = -1e30  # the TPU kernels' mask value
 
 
 def flash_attention_reference(
@@ -91,14 +94,18 @@ def _launch_cuda(q, k, v, scale: float) -> torch.Tensor:
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
+    int8_qkpv: bool = False,
 ) -> torch.Tensor:
     """Non-causal attention over q [BH, Sq, dh], k/v [BH, Sk, dh].
 
     On a CUDA tensor this launches the Hopper kernel (bf16, contiguous,
     dh in {64, 128, 256}) or raises; ``flash_attention.launches`` counts
     those launches. On a CPU tensor it returns the plain version.
-    Returns [BH, Sq, dh] in q's dtype."""
+    ``int8_qkpv`` takes the int8 attention core instead
+    (``flash_attention_int8``). Returns [BH, Sq, dh] in q's dtype."""
+    if int8_qkpv:
+        return flash_attention_int8(q, k, v, scale)
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -110,3 +117,143 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+# -- the int8 attention core (W8A8 serving) -----------------------------------
+#
+# The kernel (csrc/flash_attention_int8.cu) replaces the Pallas TPU kernel
+# tweediemix_tpu/ops/flash_attention.py::_flash_kernel_int8. Its wrapper
+# quantises q (pre-scaled by scale·log2(e) and rounded back to q's dtype), k
+# and v to int8 with per-tensor abs-max scales; the kernel runs both products
+# in int32 and requantises the probabilities as p8 = round(127·p) against the
+# running max of its 64-key tiles. These linear passes stay torch ops.
+
+# keys per tile of the int8 kernel: p8 depends on it, so the plain version
+# takes the same block_k on the CPU
+INT8_BLOCK_K = 64
+
+
+def quantize_qkv_int8(q, k, v, scale: float | None = None):
+    """The int8 core's inputs: (q8, k8, v8, scales) with q8/k8/v8 int8 and
+    scales fp32 [2] = (score_scale = q_s·k_s, out_scale = 127·v_s)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q = (q.float() * (scale * math.log2(math.e))).to(q.dtype)
+
+    def quantize(x):
+        xf = x.float()
+        s = torch.clamp_min(xf.abs().amax(), 1e-12) / 127.0
+        return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+    (q8, q_s), (k8, k_s), (v8, v_s) = quantize(q), quantize(k), quantize(v)
+    return q8, k8, v8, torch.stack([q_s * k_s, 127.0 * v_s])
+
+
+def flash_attention_int8_core_reference(q8, k8, v8, scales, block_k: int = INT8_BLOCK_K,
+                                        out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the int8 core: the kernel's blocked online softmax
+    over key blocks of ``block_k``, p8 quantised against the running max.
+
+    The int8 products are taken in fp32, which is exact here: every partial
+    sum is an integer below 127²·max(dh, block_k) ≤ 127²·1024 < 2^24."""
+    sq, dh = q8.shape[1], q8.shape[2]
+    sk = k8.shape[1]
+    score_scale, out_scale = scales[0], scales[1]
+    count_column = dh % 128 != 0  # the TPU kernel's 127 column of v
+    qf = q8.float()
+    m = torch.full((q8.shape[0], sq, 1), NEG_INF, device=q8.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros(q8.shape, device=q8.device)
+    for n0 in range(0, sk, block_k):
+        s = torch.bmm(qf, k8[:, n0 : n0 + block_k].float().transpose(1, 2)) * score_scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        m = m_new
+        p8 = torch.round(p * 127.0)
+        if count_column:
+            den = den * corr + p8.sum(dim=-1, keepdim=True) * 127.0
+        else:
+            den = den * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.bmm(p8, v8[:, n0 : n0 + block_k].float())
+    if count_column:
+        out = acc / torch.clamp_min(den, 1.0) * out_scale
+    else:
+        out = acc / torch.clamp_min(den, 1e-30) * (out_scale / (127.0 * 127.0))
+    return out.to(out_dtype)
+
+
+def flash_attention_int8_reference(q, k, v, scale: float | None = None,
+                                   block_k: int = INT8_BLOCK_K) -> torch.Tensor:
+    """Plain version of the int8 attention: quantise, then the blocked core.
+    Output in q's dtype."""
+    _check(q, k, v)
+    q8, k8, v8, scales = quantize_qkv_int8(q, k, v, scale)
+    return flash_attention_int8_core_reference(q8, k8, v8, scales, block_k, q.dtype)
+
+
+def bind_int8(lib):
+    """The typed C entry point of a built int8 kernel library."""
+    fn = lib.tm_flash_attention_int8
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
+def _launcher_int8():
+    lib = load_library("flash_attention_int8")
+    return lib, bind_int8(lib)
+
+
+def flash_attention_int8_core(q8, k8, v8, scales) -> torch.Tensor:
+    """Launch the int8 kernel on quantised CUDA inputs; returns bf16
+    [BH, Sq, dh]. ``flash_attention_int8.launches`` counts the launches."""
+    bh, sq, dh = q8.shape
+    sk = k8.shape[1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"int8 flash kernel takes dh in {HEAD_DIMS}, got {dh}")
+    if bh > 65535:
+        raise ValueError(f"int8 flash kernel takes BH <= 65535, got {bh}")
+    for name, t in (("q8", q8), ("k8", k8), ("v8", v8)):
+        if t.dtype != torch.int8 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8 flash kernel needs contiguous, 16-byte aligned int8 {name}")
+    if scales.dtype != torch.float32 or scales.numel() != 2 or not scales.is_contiguous():
+        raise ValueError("int8 flash kernel needs fp32 scales [2]")
+    lib, fn = _launcher_int8()
+    out = torch.empty(q8.shape, dtype=torch.bfloat16, device=q8.device)
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream(q8.device).cuda_stream
+        err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), scales.data_ptr(),
+                 out.data_ptr(), bh, sq, sk, dh, stream)
+    check_launch(lib, err, "flash_attention_int8")
+    flash_attention_int8.launches += 1
+    return out
+
+
+def flash_attention_int8(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """Int8 attention core (the JAX package's ``int8_qkpv``) over q [BH, Sq,
+    dh], k/v [BH, Sk, dh].
+
+    On CUDA tensors (bf16, contiguous, dh in {64, 128, 256}) it quantises
+    and launches the Hopper int8 kernel, or raises; on CPU tensors it
+    returns the plain version with the kernel's block_k. Returns [BH, Sq,
+    dh] in q's dtype."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_int8_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_int8 runs on cuda or cpu tensors, got {q.device}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"int8 flash kernel takes dh in {HEAD_DIMS}, got {q.shape[-1]}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f"int8 flash kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"int8 flash kernel needs contiguous {name}")
+    return flash_attention_int8_core(*quantize_qkv_int8(q, k, v, scale))
+
+
+flash_attention_int8.launches = 0

@@ -28,7 +28,17 @@ JAX or of the JAX package. Phases:
    weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
    attention core on (``TWEEDIEMIX_FLASH_INT8=1``): one warm and one timed
    call, the int8 kernel's launch count checked and the bf16 kernel's held
-   at 0, then one batch-4 call profiled with the int8 core on and off.
+   at 0, then one batch-4 call profiled with the int8 core on and off;
+6. video: the short-sequence (frame-axis) kernel against its plain version
+   at the video path's five shapes (as views of a merged qkv and
+   contiguous) and its edge cases; a small UNet3D and a 3-step video
+   trajectory on the card (bf16, both kernels) against the CPU (fp32, plain
+   versions); the I2VGen-XL image-to-video path at full width
+   (``UNet3DConfig.i2vgen()`` in bf16 with seeded random weights, fp32 VAE,
+   50 DDIM steps, CFG 9, 16 frames at 512², the short-attention knob on)
+   through ``I2VPipeline.generate``, one warm and one timed clip with both
+   kernels' launch counts checked, then one batch-2 UNet call profiled with
+   the knob on and off.
 
 It prints a JSON line of kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -61,6 +71,11 @@ SAMPLE_REL_TOL = 1e-2  # short trajectory latent without resampling, same compar
 # card's error against fp32 is held against the plain bf16 path's error on
 # the CPU: a kernel fault shows as a card error far above the plain one.
 RESAMPLE_RATIO_TOL = 3.0
+# The video trajectory's CFG 9 multiplies the eps error of bf16 by up to 19,
+# so its latent is held the same way: the card's distance from the CPU fp32
+# run within 3x the plain bf16 path's on the CPU (which alone reads ~9e-2
+# of max |latent| after 3 steps at the small config).
+VIDEO_RATIO_TOL = 3.0
 # The int8 kernel against its plain version on the same int8 inputs with the
 # same block_k: the same arithmetic but for exp2 ulps, the row-sum order and
 # the bf16 output, so the bf16 kernel's relative limit holds. Against exact
@@ -86,7 +101,17 @@ EDGE_SHAPES = [(2, 300, 300, 128), (8, 1024, 1024, 256), (4, 1024, 77, 64)]
 # into the rows of each call)
 INT8_MAIN_SHAPES = [(160, 4096, 4096, 64), (80, 4096, 4096, 64), (320, 1024, 1024, 64),
                     (160, 1024, 1024, 64)]
-KERNELS = ("flash_attention", "flash_attention_int8")
+# the video path's bf16 flash shapes: spatial self-attention of 32 folded
+# frames at the 64x64 and 32x32 latent levels
+VIDEO_FLASH_SHAPES = [(160, 4096, 4096, 64), (320, 1024, 1024, 64)]
+# (N, S, heads, dh) of the short-sequence kernel: the video path's five
+# shapes per UNet call (transformer_in, levels 0-2, mid; N = 2 rows x h x w
+# pixels, S = 16 frames), then the edge cases
+SHORT_MAIN_SHAPES = [(8192, 16, 8, 64), (8192, 16, 5, 64), (2048, 16, 10, 64),
+                     (512, 16, 20, 64), (128, 16, 20, 64)]
+SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 32, 5, 64),
+                     (257, 16, 4, 32), (257, 16, 2, 128), (100, 32, 3, 128)]
+KERNELS = ("flash_attention", "flash_attention_int8", "short_attention")
 
 
 def fail(msg: str) -> None:
@@ -152,7 +177,7 @@ def phase_kernels() -> list:
     )
 
     results = []
-    for bh, sq, sk, dh in MAIN_SHAPES + EDGE_SHAPES:
+    for bh, sq, sk, dh in MAIN_SHAPES + EDGE_SHAPES + VIDEO_FLASH_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(bh * 7 + sq + sk + dh)
         q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
                    for s in (sq, sk, sk))
@@ -624,14 +649,288 @@ def phase_w8a8_main_path() -> dict:
     return dict(runs=runs, expected_launches=expected, unet_gib=unet_gib, profile=profile)
 
 
+def phase_kernels_short() -> list:
+    """The short-sequence kernel against its plain version on the same bf16
+    inputs: q/k/v as views of one merged projection (as the model gives
+    them) and contiguous, at the video path's shapes and the edge cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from tweediemix_tpu_torch.ops.short_attention import (
+        short_seq_attention,
+        short_seq_attention_reference,
+    )
+
+    results = []
+    cases = [(shape, merged) for shape in SHORT_MAIN_SHAPES for merged in (True, False)]
+    cases += [(shape, True) for shape in SHORT_EDGE_SHAPES] + [("negative", False)]
+    for shape, merged in cases:
+        gen = torch.Generator(device="cuda").manual_seed(len(results) + 3)
+        if shape == "negative":  # anti-aligned q/k: scores far below zero
+            n, s, heads, dh = 64, 16, 2, 32
+            q = torch.full((n, s, heads * dh), 8.0, device="cuda")
+            k = -8.0 * (1.0 + 0.01 * torch.randn(q.shape, generator=gen, device="cuda"))
+            v = torch.randn(q.shape, generator=gen, device="cuda")
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        else:
+            n, s, heads, dh = shape
+            d = heads * dh
+            if merged:
+                qkv = torch.randn((n, s, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+                q, k, v = qkv.chunk(3, dim=-1)
+            else:
+                q, k, v = (torch.randn((n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+                           for _ in range(3))
+        out = short_seq_attention(q, k, v, heads)
+        ref = short_seq_attention_reference(q.float(), k.float(), v.float(), heads)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"short_attention non-finite output at {shape}")
+        err = (out.float() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        ms = cuda_ms(lambda: short_seq_attention(q, k, v, heads), 50)
+        plain_ms = cuda_ms(lambda: short_seq_attention_reference(q, k, v, heads), 10)
+        q4, k4, v4 = (t.view(n, s, heads, dh).transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+        d = heads * dh
+        nbytes = 4.0 * n * s * d * 2  # q, k, v read once, o written once, bf16
+        flops = 4.0 * n * s * s * d
+        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+        row = dict(shape=[n, s, heads, dh] if shape != "negative" else "negative",
+                   merged_qkv=merged, max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   gbytes_per_s=nbytes / ms / 1e6)
+        log(f"short_attention {shape} {'merged qkv' if merged else 'contiguous'}: max_abs_err "
+            f"{err:.3e} rel_err {rel:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
+            f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"{row['gbytes_per_s']:.0f} GB/s")
+        if not rel <= FLASH_REL_TOL:
+            fail(f"short_attention disagrees with its plain version at {shape}: "
+                 f"max err / max |plain| = {rel:.3e} > {FLASH_REL_TOL}")
+        results.append(row)
+    return results
+
+
+def video_sites_per_call(ucfg, latent_hw, frames: int, ctx_tokens: int) -> dict:
+    """Attentions of one UNet3D call (any batch) that the dispatcher sends to
+    the short-sequence and the bf16 flash kernels when the short knob is on
+    (the caller sets it): the temporal self-attentions over ``frames``, and
+    the spatial ones by their token counts (``ctx_tokens`` keys for the
+    cross-attentions)."""
+    from tweediemix_tpu_torch.models.unet3d import video_cross_attention_names
+    from tweediemix_tpu_torch.ops.attention import uses_flash, uses_short
+
+    hd = ucfg.attention_head_dim
+    h, w = latent_hw
+    n_levels = len(ucfg.block_out_channels)
+    counts = dict(short=0, flash=0)
+
+    def attend(tokens, keys, heads):
+        inner = heads * hd
+        if uses_short((1, tokens, inner), (1, keys, inner), heads):
+            counts["short"] += 1
+        elif uses_flash(tokens, keys, hd):
+            counts["flash"] += 1
+
+    for _ in range(2):  # transformer_in's two self-attentions
+        attend(frames, frames, 8)
+    for name in video_cross_attention_names(ucfg):
+        level = n_levels - 1 if name.startswith("mid") else int(name.split("_")[2])
+        if name.startswith("up"):
+            level = n_levels - 1 - level
+        ch = ucfg.block_out_channels[level]
+        heads = max(1, ch // hd)
+        tokens = (h >> level) * (w >> level)
+        attend(tokens, tokens, heads)  # spatial self-attention
+        attend(tokens, ctx_tokens, heads)  # spatial cross-attention
+        attend(frames, frames, heads)  # the temporal transformer's two
+        attend(frames, frames, heads)
+    return counts
+
+
+def _video_inputs(ucfg, vcfg, ctx_len, seed, device):
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    d = ucfg.cross_attention_dim
+    text = 0.1 * torch.randn((1, ctx_len, d), generator=gen)
+    uncond = 0.1 * torch.randn((1, ctx_len, d), generator=gen)
+    image = torch.rand((1, vcfg.height, vcfg.width, 3), generator=gen) * 2 - 1
+    emb = 0.1 * torch.randn((1, 1, d), generator=gen)
+    return tuple(t.to(device) for t in (text, uncond, image, emb))
+
+
+def phase_reference_video() -> dict:
+    """A small UNet3D whose temporal self-attentions (8 frames, dh = 64)
+    reach the short kernel and whose 32x32-token spatial self-attentions
+    reach the flash kernel: one call on the card (bf16, kernels) against the
+    same weights on the CPU (fp32, plain versions); then a 3-step trajectory,
+    the card's distance from the CPU fp32 run held against the plain bf16
+    path's on the CPU."""
+    import torch
+
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+    from tweediemix_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
+    from tweediemix_tpu_torch.video.pipeline import I2VPipeline, VideoConfig
+
+    kw = dict(block_out_channels=(64, 128), attention_head_dim=64, cross_attention_dim=64,
+              norm_num_groups=32, context_pool_size=8)
+    vcfg = VideoConfig(num_frames=8, height=64, width=64, latent_factor=2, n_timesteps=3,
+                       injection_timestep=0.34)
+    h, w = vcfg.latent_hw
+    torch.manual_seed(6)
+    cpu = UNet3DConditionModel(UNet3DConfig.tiny(**kw), device="cpu")
+    gpu = UNet3DConditionModel(UNet3DConfig.tiny(dtype=torch.bfloat16, **kw), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    cpu16 = UNet3DConditionModel(UNet3DConfig.tiny(dtype=torch.bfloat16, **kw), device="cpu")
+    cpu16.load_state_dict(cpu.state_dict())
+    ctx_len = 9
+    os.environ["TWEEDIEMIX_SHORT_ATTENTION"] = "1"
+    sites = video_sites_per_call(gpu.config, (h, w), vcfg.num_frames, ctx_len + 4 + 4)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    b, f = 2, vcfg.num_frames
+    x = torch.randn((b, f, h, w, 4), generator=gen)
+    ctx = 0.2 * torch.randn((b, ctx_len, 64), generator=gen)
+    il = 0.3 * torch.randn((b, f, h, w, 4), generator=gen)
+    emb = 0.2 * torch.randn((b, 1, 64), generator=gen)
+    fps = torch.full((b,), 8.0)
+    args = (x, 501, ctx, il, emb, fps, 1.0, 1.0, 0.7)
+    out = {}
+    try:
+        with torch.inference_mode():
+            want = cpu(*args)
+            flash_attention.launches = short_seq_attention.launches = 0
+            got = gpu(*(a.cuda() if torch.is_tensor(a) else a for a in args)).cpu()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        launches = dict(short=short_seq_attention.launches, flash=flash_attention.launches)
+        log(f"reference: small UNet3D eps, card bf16 vs CPU fp32: max err / max |eps| = "
+            f"{rel:.3e}; launches {launches}, expected {sites}")
+        if sites["short"] == 0 or sites["flash"] == 0 or launches != sites:
+            fail(f"small UNet3D: kernel launches {launches}, expected {sites}")
+        if not (torch.isfinite(got).all() and rel <= EPS_REL_TOL):
+            fail(f"small UNet3D on the card disagrees with the CPU: rel {rel:.3e}")
+        out["unet3d_rel"] = rel
+
+        torch.manual_seed(8)
+        vae = AutoencoderKL(VAEConfig.tiny(scaling_factor=0.18215), device="cpu")
+        text, uncond, image, emb1 = _video_inputs(cpu.config, vcfg, ctx_len, 9, "cpu")
+        x0 = torch.randn((1, f, h, w, 4), generator=gen)
+        noise = torch.randn((1, h, w, 4), generator=gen)
+        lat = {}
+        for name, unet, device in (("cpu", cpu, "cpu"), ("cpu16", cpu16, "cpu"),
+                                   ("card", gpu, "cuda")):
+            pipe = I2VPipeline(vcfg, unet, vae, device=device)
+            pipe.generate(text, uncond, image, emb1, x_init=x0, posterior_noise=noise)
+            lat[name] = pipe.last_latent.float().cpu()
+        scale = lat["cpu"].abs().max()
+        rel_card = ((lat["card"] - lat["cpu"]).abs().max() / scale).item()
+        rel_plain = ((lat["cpu16"] - lat["cpu"]).abs().max() / scale).item()
+        log(f"reference: 3-step video trajectory (CFG 9, injection on step 1), latent max err / "
+            f"max against CPU fp32: card bf16 (kernels) {rel_card:.3e}, CPU bf16 (plain) "
+            f"{rel_plain:.3e}")
+        if not (torch.isfinite(lat["card"]).all() and rel_card <= VIDEO_RATIO_TOL * rel_plain):
+            fail(f"3-step video trajectory on the card is {rel_card:.3e} from fp32, more than "
+                 f"{VIDEO_RATIO_TOL} x the plain bf16 path's {rel_plain:.3e}")
+        out.update(trajectory_rel_card=rel_card, trajectory_rel_plain_bf16=rel_plain)
+    finally:
+        os.environ.pop("TWEEDIEMIX_SHORT_ATTENTION", None)
+    return out
+
+
+def phase_video_main_path() -> dict:
+    """I2VGen-XL image-to-video at full width: one warm and one timed clip
+    with the short-attention knob on, then a batch-2 UNet call profiled
+    with the knob on and off."""
+    import torch
+
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConfig, precompute_video_cache
+    from tweediemix_tpu_torch.models.vae import VAEConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
+    from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
+    from tweediemix_tpu_torch.video.pipeline import I2VPipeline, VideoConfig
+
+    ucfg = UNet3DConfig.i2vgen(dtype=torch.bfloat16)
+    vcfg = VideoConfig()
+    ctx_len = 77
+    os.environ["TWEEDIEMIX_SHORT_ATTENTION"] = "1"
+    sites = video_sites_per_call(ucfg, vcfg.latent_hw, vcfg.num_frames, ctx_len + 64 + 4)
+    expected = {k: v * vcfg.n_timesteps for k, v in sites.items()}
+    if expected != dict(short=1700, flash=500):
+        fail(f"expected 1700 short and 500 flash launches per clip, the config gives {expected}")
+
+    t0 = time.perf_counter()
+    pipe = I2VPipeline.from_random_weights(ucfg, VAEConfig(scaling_factor=0.18215), vcfg,
+                                           seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.unet.parameters())
+    log(f"video path: UNet3D {n_params / 1e9:.4f} B params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s; {vcfg.n_timesteps} UNet calls of 2 rows x "
+        f"{vcfg.num_frames} frames per clip")
+    text, uncond, image, emb = _video_inputs(ucfg, vcfg, ctx_len, 0, "cuda")
+    runs = []
+    try:
+        for run in range(2):  # a warm clip, then the timed one
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = flash_attention_int8.launches = 0
+            short_seq_attention.launches = 0
+            t0 = time.perf_counter()
+            video = pipe.generate(text, uncond, image, emb, seed=run)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(short=short_seq_attention.launches, flash=flash_attention.launches)
+            stats = dict(
+                s_per_clip=wall, launches=launches, int8_launches=flash_attention_int8.launches,
+                phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
+                max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                video_mean=video.float().mean().item(),
+                latent_absmax=pipe.last_latent.abs().max().item(),
+            )
+            log(f"video path {'timed' if run else 'warm'} clip: {json.dumps(stats)}")
+            if tuple(video.shape) != (vcfg.num_frames, vcfg.height, vcfg.width, 3):
+                fail(f"video shape {tuple(video.shape)}")
+            if not torch.isfinite(pipe.last_latent).all() or not torch.isfinite(video).all():
+                fail("video path: non-finite latent or frames")
+            if video.min().item() < 0.0 or video.max().item() > 1.0:
+                fail("video path: frames outside [0, 1]")
+            if launches != expected or flash_attention_int8.launches != 0:
+                fail(f"video path launches {launches} (int8 {flash_attention_int8.launches}), "
+                     f"expected {expected} and 0 int8")
+            runs.append(stats)
+
+        # one batch-2 UNet call of the loop (cache on), knob on and off
+        h, w = vcfg.latent_hw
+        ctx2 = torch.cat([uncond, text])
+        il2 = 0.3 * torch.randn((2, vcfg.num_frames, h, w, 4), device="cuda")
+        emb2 = torch.cat([torch.zeros_like(emb), emb])
+        fps2 = torch.full((2,), float(vcfg.fps), device="cuda")
+        x2 = torch.randn((1, vcfg.num_frames, h, w, 4), device="cuda").repeat(2, 1, 1, 1, 1)
+        with torch.inference_mode():
+            cctx, cil, kv = precompute_video_cache(pipe.unet, ctx2, il2, emb2, fps2)
+
+        def call():
+            pipe.unet(x2, 501, ctx2, il2, emb2, fps2, False, False, vcfg.interp_ratio,
+                      cached_ctx=cctx, cached_il=cil, cross_kv=kv)
+
+        profile = {"video_batch2_short_on": profile_fn("video_batch2_short_on", call)}
+        os.environ["TWEEDIEMIX_SHORT_ATTENTION"] = "0"
+        profile["video_batch2_short_off"] = profile_fn("video_batch2_short_off", call)
+    finally:
+        os.environ.pop("TWEEDIEMIX_SHORT_ATTENTION", None)
+    return dict(runs=runs, expected_launches=expected, unet_params=n_params, profile=profile)
+
+
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
+    ("short_attention", ("short_attn_kernel",)),
     ("flash_attention_int8", ("flash_int8_fwd_kernel",)),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("layout", ("nchwToNhwc", "nhwcToNchw")),
     ("convolution", ("fprop", "conv", "dgrad", "winograd")),
     ("gemm_int8", ("s8s8", "i8i8", "imma", "_s8_", "_i8_", "int8")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
-    ("norm", ("norm",)),
+    ("norm", ("norm", "moments")),  # GroupNorm's statistics: RowwiseMomentsCUDAKernel
     ("softmax", ("softmax",)),
     ("elementwise/copy", ("elementwise", "vectorized", "copy", "cat", "fill", "reduce", "index")),
 )
@@ -646,28 +945,36 @@ def _kernel_class(name: str) -> str:
 
 
 def profile_call(pipe, label, ctx, pooled, idx) -> dict:
-    """One UNet call (cross-K/V cache on) under torch.profiler: device time
-    by kernel class and the top kernels; the device's idle share is taken
-    against the mean wall time of the same call run without the profiler."""
+    """One fusion UNet call (cross-K/V cache on), profiled by ``profile_fn``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     h, w = pipe.fusion_config.latent_hw
     x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
     with torch.inference_mode():
         kv = pipe._kv_builder(ctx, idx)
-        pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+        return profile_fn(label, lambda: pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv))
+
+
+def profile_fn(label, call) -> dict:
+    """``call()`` under torch.profiler: device time by kernel class and the
+    top kernels; the device's idle share is taken against the mean wall time
+    of the same call run without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        call()
         torch.cuda.synchronize()
         # wall time without the profiler, whose host overhead inflates it
         t0 = time.perf_counter()
         for _ in range(3):
-            pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+            call()
             torch.cuda.synchronize()
             profiled_wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, by_class = {}, {}
@@ -705,9 +1012,13 @@ def main() -> None:
     int8_rows = phase_kernels_int8()
     phase_reference()
     reference_w8a8 = phase_reference_w8a8()
+    short_rows = phase_kernels_short()
+    reference_video = phase_reference_video()
     main_path = phase_main_path()
     torch.cuda.empty_cache()
     w8a8 = phase_w8a8_main_path()
+    torch.cuda.empty_cache()
+    video = phase_video_main_path()
 
     def entry(name, source, replaces, launches, rows, **extra):
         head = rows[0]  # the first main-path shape
@@ -721,13 +1032,17 @@ def main() -> None:
     kernels = [
         entry("flash_attention", "tweediemix_tpu_torch/csrc/flash_attention.cu",
               "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
-              kernel_rows),
+              kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"]),
         entry("flash_attention_int8", "tweediemix_tpu_torch/csrc/flash_attention_int8.cu",
               "tweediemix_tpu/ops/flash_attention.py:113", w8a8["runs"][-1]["int8_launches"],
               int8_rows, wrapper_ms=int8_rows[0]["wrapper_ms"],
               sdpa_bf16_ms=int8_rows[0]["sdpa_bf16_ms"]),
+        entry("short_attention", "tweediemix_tpu_torch/csrc/short_attention.cu",
+              "tweediemix_tpu/ops/short_attention.py:51", video["runs"][-1]["launches"]["short"],
+              short_rows),
     ]
-    log(json.dumps(dict(main_path=main_path, reference_w8a8=reference_w8a8, w8a8_main_path=w8a8)))
+    log(json.dumps(dict(main_path=main_path, reference_w8a8=reference_w8a8, w8a8_main_path=w8a8,
+                        reference_video=reference_video, video_path=video)))
     log(json.dumps(dict(kernels=kernels)))
     log(gpu_name_and_power())
     log(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),

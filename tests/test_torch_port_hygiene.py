@@ -31,6 +31,7 @@ def _port_sources():
 def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     assert "tweediemix_tpu_torch.fusion.pipeline" in modules
+    assert "tweediemix_tpu_torch.video.pipeline" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -64,7 +65,9 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
     from tweediemix_tpu_torch.fusion.sampler import FusionConfig, FusionSampler
     from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
     from tweediemix_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
     from tweediemix_tpu_torch.schedulers.ddim import DDIMTable
+    from tweediemix_tpu_torch.video.pipeline import I2VPipeline, VideoConfig
 
     fcfg = FusionConfig(n_timesteps=10, height=64, width=64)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -79,6 +82,13 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
         TweedieMixPipeline(unet, vae, fcfg)
     with pytest.raises(RuntimeError, match="cuda"):
         FusionSampler(DDIMTable.create(n_steps=10), fcfg, None).init_latent(0)
+    vcfg = VideoConfig(num_frames=2, height=16, width=16, latent_factor=2, n_timesteps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        UNet3DConditionModel(UNet3DConfig.tiny())
+    with pytest.raises(RuntimeError, match="cuda"):
+        I2VPipeline.from_random_weights(UNet3DConfig.tiny(), VAEConfig.tiny(), vcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        I2VPipeline(vcfg, UNet3DConditionModel(UNet3DConfig.tiny(), device="cpu"), vae)
 
 
 def test_package_exports_version_and_ddim_table():

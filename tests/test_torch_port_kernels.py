@@ -6,7 +6,8 @@ machine, which has no JAX:
 Tests marked ``cuda`` need a CUDA card and nvcc and skip elsewhere.
 Tolerance on the card: max |kernel - plain| / max |plain| <= 1e-2, the plain
 version in fp32 on the same bf16 inputs (for the int8 kernel: on the same
-int8 inputs, with the kernel's block_k). The limit is relative because randn
+int8 inputs, with the kernel's block_k), for the flash kernels and the
+short-sequence (frame-axis) kernel alike. The limit is relative because randn
 inputs give outputs of std ~ sqrt(e/Sk), far below 1; bf16 output rounding
 alone reads up to ~4e-3.
 """
@@ -19,7 +20,8 @@ import torch
 
 from tweediemix_tpu_torch.ops import cuda_build
 from tweediemix_tpu_torch.ops import flash_attention as flash_module
-from tweediemix_tpu_torch.ops.attention import attention
+from tweediemix_tpu_torch.ops import short_attention as short_module
+from tweediemix_tpu_torch.ops.attention import attention, multi_head_attention
 from tweediemix_tpu_torch.ops.flash_attention import (
     INT8_BLOCK_K,
     bind_int8,
@@ -31,7 +33,16 @@ from tweediemix_tpu_torch.ops.flash_attention import (
     quantize_qkv_int8,
 )
 
+from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
+
 INT8_TOL = 1e-2
+SHORT_TOL = 1e-2
+# (N, S, heads, dh): the video path's five shapes (transformer_in, levels
+# 0-2, mid), then the edge cases
+SHORT_MAIN_SHAPES = [(8192, 16, 8, 64), (8192, 16, 5, 64), (2048, 16, 10, 64),
+                     (512, 16, 20, 64), (128, 16, 20, 64)]
+SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 32, 5, 64),
+                     (257, 16, 4, 32), (257, 16, 2, 128), (100, 32, 3, 128), (33, 20, 6, 32)]
 
 
 def _card():
@@ -208,3 +219,117 @@ def test_cpu_tensors_never_reach_the_int8_kernel(monkeypatch):
     assert torch.equal(out, flash_module.flash_attention_int8_reference(q, q, q))
     assert out.dtype == torch.bfloat16
     assert (flash_attention.launches, flash_attention_int8.launches) == counts
+
+
+def _short_case(n, s, heads, dh, seed, merged=True):
+    """bf16 q/k/v [N, S, heads·dh] on the card: ``chunk(3)`` views of one
+    merged projection (row stride 3·heads·dh, as the model's self-attention
+    gives them) or three contiguous tensors."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = heads * dh
+    if merged:
+        qkv = torch.randn((n, s, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+        return qkv.chunk(3, dim=-1)
+    return [torch.randn((n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def _short_rel(q, k, v, heads, out):
+    plain = short_seq_attention_reference(q.float(), k.float(), v.float(), heads)
+    return (out.float() - plain).abs().max().item() / plain.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("n,s,heads,dh", SHORT_MAIN_SHAPES + SHORT_EDGE_SHAPES)
+def test_short_kernel_matches_plain_on_card(n, s, heads, dh, merged):
+    _card()
+    q, k, v = _short_case(n, s, heads, dh, n + s + heads + dh, merged)
+    before = short_seq_attention.launches
+    out = short_seq_attention(q, k, v, heads)
+    assert short_seq_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert torch.isfinite(out).all()
+    assert _short_rel(q, k, v, heads, out) <= SHORT_TOL
+
+
+@pytest.mark.cuda
+def test_short_kernel_strongly_negative_scores_on_card():
+    """Anti-aligned q/k at large magnitude: every row still a softmax
+    average of v, as the plain version gives it."""
+    _card()
+    n, s, heads, dh = 64, 16, 2, 32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.full((n, s, heads * dh), 8.0, device="cuda")
+    k = -8.0 * (1.0 + 0.01 * torch.randn(q.shape, generator=gen, device="cuda"))
+    v = torch.randn(q.shape, generator=gen, device="cuda")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out = short_seq_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert out.float().abs().max().item() > 1e-2
+    assert _short_rel(q, k, v, heads, out) <= SHORT_TOL
+
+
+@pytest.mark.cuda
+def test_short_kernel_rejects_what_it_does_not_take_on_card():
+    _card()
+    q = torch.zeros((4, 16, 128), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        short_seq_attention(q.float(), q.float(), q.float(), 2)
+    with pytest.raises(ValueError):  # dh = 16
+        short_seq_attention(q, q, q, 8)
+    q33 = torch.zeros((4, 33, 128), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # S > 32
+        short_seq_attention(q33, q33, q33, 2)
+    wide = torch.zeros((4, 16, 130), device="cuda", dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError):  # a row stride of 130 elements
+        short_seq_attention(wide, wide, wide, 2)
+
+
+@pytest.mark.cuda
+def test_short_knob_dispatches_to_the_short_kernel_on_card(monkeypatch):
+    _card()
+    q, k, v = _short_case(64, 16, 2, 64, 1)
+    before = short_seq_attention.launches
+    monkeypatch.setenv("TWEEDIEMIX_SHORT_ATTENTION", "1")
+    on = multi_head_attention(q, k, v, 2)
+    assert short_seq_attention.launches == before + 1
+    monkeypatch.setenv("TWEEDIEMIX_SHORT_ATTENTION", "0")
+    off = multi_head_attention(q, k, v, 2)
+    assert short_seq_attention.launches == before + 1
+    assert (on.float() - off.float()).abs().max().item() <= SHORT_TOL * off.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_short_check_catches_an_unmasked_frame_on_card(tmp_path, monkeypatch):
+    """Mutation check: a copy of the short kernel that does not mask the
+    padded key frames (S = 12 pads to 16) must fail the comparison with the
+    plain version."""
+    _card()
+    masked = "const float val = col < s ? sc[j][e] * scale_log2 : kNegInf;"
+    src = (cuda_build.CSRC_DIR / "short_attention.cu").read_text()
+    assert src.count(masked) == 1
+    (tmp_path / "short_attention.cu").write_text(
+        src.replace(masked, "const float val = sc[j][e] * scale_log2;"))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    lib = ctypes.CDLL(str(cuda_build.build_library("short_attention")))
+    monkeypatch.setattr(short_module, "_launcher", lambda: (lib, short_module.bind(lib)))
+    q, k, v = _short_case(2048, 12, 10, 64, 7)
+    rel = _short_rel(q, k, v, 10, short_seq_attention(q, k, v, 10))
+    print(f"short kernel with its padded frames unmasked at S = 12: max err / max |plain| = {rel:.3e}")
+    assert rel > SHORT_TOL
+
+
+def test_cpu_tensors_never_reach_the_short_kernel(monkeypatch):
+    def no_library(name):
+        raise AssertionError("CPU tensors must take the plain version")
+
+    monkeypatch.setattr("tweediemix_tpu_torch.ops.short_attention.load_library", no_library)
+    monkeypatch.setenv("TWEEDIEMIX_SHORT_ATTENTION", "1")
+    q, k, v = torch.randn((3, 8, 16, 128)).to(torch.bfloat16).unbind(0)
+    before = short_seq_attention.launches
+    out = multi_head_attention(q, k, v, 2)
+    assert torch.equal(out, short_seq_attention_reference(q, k, v, 2))
+    assert short_seq_attention.launches == before

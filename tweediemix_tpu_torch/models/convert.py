@@ -4,7 +4,8 @@ A parameter tree is the nested dict of arrays that ``tweediemix_tpu``'s Flax
 UNet and VAE hold (``model.init(...)["params"]``, as numpy arrays). The rules:
 
 * Dense ``kernel [in, out]`` → Linear ``weight [out, in]``;
-* Conv ``kernel`` HWIO → ``weight`` OIHW;
+* Conv ``kernel`` HWIO → ``weight`` OIHW (a temporal conv's [3, 1, 1, I, O]
+  → Conv3d [O, I, 3, 1, 1]);
 * norm ``scale`` → ``weight``; biases are unchanged;
 * concept stacks (``to_k_stack``/``to_v_stack`` [slots, in, out]) and LoRA
   factors keep their layout and names;
@@ -17,7 +18,11 @@ UNet and VAE hold (``model.init(...)["params"]``, as numpy arrays). The rules:
   quantises its fp32 kernels;
 * Flax scope names become the diffusers module paths the port uses
   (``down_blocks_1_attentions_0/transformer_blocks_0/ff/net_0_proj`` →
-  ``down_blocks.1.attentions.0.transformer_blocks.0.ff.net.0.proj``).
+  ``down_blocks.1.attentions.0.transformer_blocks.0.ff.net.0.proj``; for the
+  video UNet ``down_blocks_0_temp_convs_0/norm2`` →
+  ``down_blocks.0.temp_convs.0.conv2.0``, ``image_latents_proj_in_conv2`` →
+  ``image_latents_proj_in.2``, ``fps_embedding/linear_1`` →
+  ``fps_embedding.0``).
 
 A key the module lacks, a key the tree lacks, or a shape that differs
 raises.
@@ -34,14 +39,25 @@ from torch import nn
 
 from tweediemix_tpu_torch.ops.quant import quantize_weight_int8, quantize_weight_int8_conv
 
+_BLOCK_PARTS = r"(resnets|attentions|temp_convs|temp_attentions|downsamplers|upsamplers)"
 _RENAMES = (
-    (re.compile(r"(down_blocks|up_blocks)_(\d+)_(resnets|attentions|downsamplers|upsamplers)_(\d+)"),
-     r"\1.\2.\3.\4"),
-    (re.compile(r"mid_block_(resnets|attentions)_(\d+)"), r"mid_block.\1.\2"),
+    (re.compile(rf"(down_blocks|up_blocks)_(\d+)_{_BLOCK_PARTS}_(\d+)"), r"\1.\2.\3.\4"),
+    (re.compile(rf"mid_block_{_BLOCK_PARTS}_(\d+)"), r"mid_block.\1.\2"),
     (re.compile(r"transformer_blocks_(\d+)"), r"transformer_blocks.\1"),
     (re.compile(r"\bto_out_0\b"), "to_out.0"),
     (re.compile(r"\bff\.net_0_proj\b"), "ff.net.0.proj"),
     (re.compile(r"\bff\.net_2\b"), "ff.net.2"),
+    # the video UNet's nn.Sequential stacks (diffusers' indices): a temporal
+    # conv stage K holds its norm at 0 and its conv at 2 (K = 1) or 3
+    (re.compile(r"(temp_convs\.\d+)\.conv1$"), r"\1.conv1.2"),
+    (re.compile(r"(temp_convs\.\d+)\.conv([234])$"), r"\1.conv\2.3"),
+    (re.compile(r"(temp_convs\.\d+)\.norm([1234])$"), r"\1.conv\2.0"),
+    (re.compile(r"^image_latents_proj_in_conv([123])$"),
+     lambda m: f"image_latents_proj_in.{2 * int(m.group(1)) - 2}"),
+    (re.compile(r"^image_latents_context_embedding_conv([123])$"),
+     lambda m: "image_latents_context_embedding." + "035"[int(m.group(1)) - 1]),
+    (re.compile(r"^(context_embedding|fps_embedding)\.linear_([12])$"),
+     lambda m: f"{m.group(1)}.{2 * int(m.group(2)) - 2}"),
 )
 
 
@@ -74,6 +90,8 @@ def torch_layout(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
             return arr.T
         if arr.ndim == 4:
             return arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:  # temporal conv [3, 1, 1, I, O] → Conv3d [O, I, 3, 1, 1]
+            return arr.transpose(4, 3, 0, 1, 2)
     return arr
 
 
@@ -110,7 +128,7 @@ def quantize_weights(sd: Dict[str, torch.Tensor], want: Mapping) -> None:
 
 
 def convert_params(params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree (the JAX UNet's, VAE's or one block's) →
+    """Flax parameter tree (the JAX UNet's, video UNet's, VAE's or one block's) →
     ``module``'s state_dict as CPU tensors (fp32, and int8 where quantised);
     raises listing every missing, unexpected or mis-shaped key."""
     sd = {}

@@ -221,7 +221,7 @@ class Attention(nn.Module):
         return k, v
 
     def forward(self, x, ctx=None, concept_idx=None, kv=None):
-        if concept_idx is None:
+        if concept_idx is None and (self.stacked or self.lora_slots):
             concept_idx = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
         if not self.is_cross:
             q, k, v = self.to_qkv(x).chunk(3, dim=-1)

@@ -7,10 +7,13 @@ dh in {64, 128, 256} (the SDXL self-attention at the 4096- and 1024-token
 levels). On CUDA tensors they go to the Hopper kernel, on CPU tensors to its
 plain version. ``TWEEDIEMIX_FLASH_INT8=1``, read on every call as the JAX
 package reads it, sends them to the int8 core instead (its kernel on CUDA,
-its plain version on the CPU). Cross-attention (77 keys) and every other
-site take the math path, which switches to query chunks when the fp32 score
-tensor would pass 256 MiB. Head split/merge happens here, so model code only
-sees [B, S, D].
+its plain version on the CPU). ``TWEEDIEMIX_SHORT_ATTENTION=1``, read the
+same way, sends short self-attention (the video UNet's frame axis: q and k of
+one shape, S <= 32, dh in {32, 64, 128}) to the short-sequence kernel, or to
+its plain version on the CPU; it stays opt-in, as in the JAX package.
+Cross-attention (77 keys) and every other site take the math path, which
+switches to query chunks when the fp32 score tensor would pass 256 MiB. Head
+split/merge happens here, so model code only sees [B, S, D].
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 
 import torch
 
+from tweediemix_tpu_torch.ops import short_attention
 from tweediemix_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 
 FLASH_MIN_SQ = 1024
@@ -31,6 +35,16 @@ def uses_flash(sq: int, sk: int, dh: int) -> bool:
     """Whether ``attention`` sends a [*, sq, dh] x [*, sk, dh] call to the
     flash kernel."""
     return sq >= FLASH_MIN_SQ and sk >= FLASH_MIN_SK and dh in HEAD_DIMS
+
+
+def uses_short(q_shape, k_shape, num_heads: int) -> bool:
+    """Whether ``multi_head_attention`` sends [N, S, H·dh] q/k of these
+    shapes to the short-sequence kernel (the JAX package's gate, knob read
+    on every call)."""
+    return (os.environ.get("TWEEDIEMIX_SHORT_ATTENTION", "0") == "1"
+            and tuple(q_shape) == tuple(k_shape)
+            and q_shape[1] <= short_attention.MAX_S
+            and q_shape[-1] // num_heads in short_attention.HEAD_DIMS)
 
 
 def math_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -82,6 +96,8 @@ def multi_head_attention(q, k, v, num_heads: int, scale: float | None = None) ->
     """Multi-head attention over [B, S, D] projections (pre-head-split)."""
     if scale is None:
         scale = (q.shape[-1] // num_heads) ** -0.5
+    if uses_short(q.shape, k.shape, num_heads):
+        return short_attention.short_seq_attention(q, k, v, num_heads, scale)
     out = attention(
         split_heads(q, num_heads), split_heads(k, num_heads), split_heads(v, num_heads),
         scale=scale,

@@ -107,6 +107,21 @@ def cfg(eps_uncond: torch.Tensor, eps_cond: torch.Tensor, scale: float) -> torch
     return eps_uncond + scale * (eps_cond - eps_uncond)
 
 
+def video_rotation_step(x: torch.Tensor, eps_pred: torch.Tensor, at: float,
+                        at_next: float) -> torch.Tensor:
+    """The I2VGen-XL "angle rotation" DDIM step: (x_t, eps) are rotated as
+    an orthogonal basis,
+
+        eps_rot = sqrt(ā)·eps_pred + sqrt(1-ā)·x_t
+        x0      = sqrt(ā)·x_t     - sqrt(1-ā)·eps_pred
+        x_next  = sqrt(ā_next)·x0 + sqrt(1-ā_next)·eps_rot
+    """
+    sa, sb = _sqrt32(at), _sqrt32(1.0 - at)
+    eps_rot = sa * eps_pred + sb * x
+    x0 = sa * x - sb * eps_pred
+    return _sqrt32(at_next) * x0 + _sqrt32(1.0 - at_next) * eps_rot
+
+
 def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float = 0.0):
     """CFG rescale of arXiv 2305.08891 §3.4."""
     dims = tuple(range(1, noise_pred_text.ndim))

@@ -11,7 +11,9 @@ JAX or of the JAX package. Phases:
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the same inputs at the main paths' shapes and the edge cases, with its
    time, the plain version's, one PyTorch library call's (a yardstick only)
-   and the bound; the int8 kernel also against exact fp32 attention;
+   and the bound (for the bf16 kernel also the softmax's exp2 floor and the
+   wrapper's host cost per call); the int8 kernel also against exact fp32
+   attention;
 3. reference: a small UNet and a short fusion sample on the card (bf16,
    through the kernel) against the same weights on the CPU (fp32, plain
    versions); with resampling, the card's distance from fp32 is held
@@ -59,6 +61,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
+H100_SMS = 132
+# the SM clock at which H100_BF16_FLOPS holds: 4096 dense bf16 flops per
+# clock per SM (about 1830 MHz)
+H100_PEAK_CLOCK_HZ = H100_BF16_FLOPS / (H100_SMS * 4096)
+MUFU_EX2_PER_CLOCK_PER_SM = 16  # exp2 on the special-function units, sm_90
 # max |kernel - plain| / max |plain|, the plain version in fp32 on the same
 # bf16 inputs. randn q/k/v give outputs of std ~ sqrt(e/Sk), far below 1, so
 # the limit is relative: the kernel's bf16 output rounding alone reads up to
@@ -96,7 +103,11 @@ INT8_JAX_TEST_SHAPES = [(4, 256, 256, 64), (2, 300, 300, 64), (2, 128, 128, 128)
 W8A8_RATIO_TOL = 3.0
 # (BH, Sq, Sk, dh): the main path's four shapes, then the edge cases
 MAIN_SHAPES = [(40, 4096, 4096, 64), (20, 4096, 4096, 64), (80, 1024, 1024, 64), (40, 1024, 1024, 64)]
-EDGE_SHAPES = [(2, 300, 300, 128), (8, 1024, 1024, 256), (4, 1024, 77, 64)]
+# partial 128-row query blocks (Sq = 129, 1000), partial last key tiles (Sk =
+# 77, 129, 1000, 4100), dh 128 and 256 at ragged lengths, BH = 320
+EDGE_SHAPES = [(2, 300, 300, 128), (8, 1024, 1024, 256), (4, 1024, 77, 64), (2, 129, 129, 64),
+               (1, 1000, 4100, 64), (320, 129, 77, 64), (2, 1000, 129, 128), (2, 129, 4100, 128),
+               (2, 129, 1000, 256)]
 # the W8A8 main path's four shapes at four seeds (the sampler folds seeds
 # into the rows of each call)
 INT8_MAIN_SHAPES = [(160, 4096, 4096, 64), (80, 4096, 4096, 64), (320, 1024, 1024, 64),
@@ -129,6 +140,25 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+def host_us_per_call(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host microseconds to enqueue one call, timed while the device is kept
+    busy (so the launch queue neither drains nor fills); the median of
+    ``repeats`` runs of ``calls`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda._sleep(500_000_000)  # ~0.3 s of device time
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(runs)[repeats // 2]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -171,6 +201,7 @@ def phase_kernels() -> list:
     import torch
     import torch.nn.functional as F
 
+    from tweediemix_tpu_torch.ops import flash_attention as flash_module
     from tweediemix_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
@@ -197,19 +228,39 @@ def phase_kernels() -> list:
         flops = 4.0 * bh * sq * sk * dh
         nbytes = 2.0 * bh * (2 * sq + 2 * sk) * dh
         t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+        # the softmax's floor, logged beside the bound: one exp2 per score on
+        # the special-function units at the clock of the tensor peak (at dh 64
+        # it equals the operations bound: 256 flops per score at 4096 per clock)
+        exp2_ms = bh * sq * sk / (MUFU_EX2_PER_CLOCK_PER_SM * H100_SMS * H100_PEAK_CLOCK_HZ) * 1e3
         row = dict(shape=[bh, sq, sk, dh], max_abs_err=err, rel_err=rel, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   tflops=flops / ms / 1e9)
+                   sdpa_ratio=ms / library_ms, tflops=flops / ms / 1e9)
         log(f"flash_attention {tuple(row['shape'])}: max_abs_err {err:.3e} rel_err {rel:.3e} "
-            f"ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms {library_ms:.4f} "
-            f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) {row['tflops']:.1f} TFLOP/s")
+            f"ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms {library_ms:.4f} (kernel/sdpa "
+            f"{row['sdpa_ratio']:.3f}) bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"exp2_floor_ms {exp2_ms:.4f} {row['tflops']:.1f} TFLOP/s")
         if not rel <= FLASH_REL_TOL:
             fail(f"flash_attention disagrees with its plain version at {(bh, sq, sk, dh)}: "
                  f"max err / max |plain| = {rel:.3e} > {FLASH_REL_TOL}")
         results.append(row)
         del q, k, v, q4, k4, v4, out, ref
         torch.cuda.empty_cache()
+    # host cost of one call: the wrapper, and its C entry point alone (three
+    # tensor-map encodes and the launch), against one SDPA call
+    q = torch.randn((1, 128, 64), device="cuda").to(torch.bfloat16)
+    out = torch.empty_like(q)
+    _, entry = flash_module._launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 128, 128, 64, 0.18, stream)
+    host = dict(wrapper_us=host_us_per_call(lambda: flash_attention(q, q, q)),
+                c_entry_us=host_us_per_call(lambda: entry(*args)),
+                sdpa_us=host_us_per_call(lambda: F.scaled_dot_product_attention(q[None], q[None],
+                                                                               q[None])))
+    results[0]["host_cost"] = host
+    log(f"flash_attention host cost per call while the device is busy (median of 5 x 200 calls): "
+        f"wrapper {host['wrapper_us']:.2f} us, its C entry point {host['c_entry_us']:.2f} us, "
+        f"SDPA {host['sdpa_us']:.2f} us")
     return results
 
 

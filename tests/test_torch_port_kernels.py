@@ -54,7 +54,13 @@ def _card():
 @pytest.mark.parametrize(
     "bh,sq,sk,dh",
     [(4, 1024, 1024, 64), (2, 300, 300, 128), (2, 1024, 77, 256), (1, 65, 4100, 64),
-     (3, 1, 1, 128)],
+     (3, 1, 1, 128),
+     # the kernel's tile edges: partial 128-row query blocks (Sq = 129, 1000),
+     # partial last key tiles (Sk = 129, 4100, 77), dh 128 and 256 at ragged
+     # lengths, BH = 320
+     (2, 129, 129, 64), (1, 1000, 4100, 64), (2, 1000, 77, 64), (2, 129, 4100, 128),
+     (2, 1000, 129, 128), (2, 129, 1000, 256), (2, 1000, 77, 256), (320, 129, 129, 64),
+     (320, 1024, 77, 64)],
 )
 def test_flash_kernel_matches_plain_on_card(bh, sq, sk, dh):
     _card()
@@ -67,6 +73,23 @@ def test_flash_kernel_matches_plain_on_card(bh, sq, sk, dh):
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     ref = flash_attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0, 2.0])
+@pytest.mark.parametrize("bh,sq,sk,dh", [(2, 300, 300, 64), (1, 129, 4100, 128)])
+def test_flash_kernel_takes_any_scale_on_card(bh, sq, sk, dh, scale):
+    """The kernel reduces rows by their max for a scale >= 0 and by their min
+    for a negative one (its other instance); both match the plain version."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(bh + sq + sk + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+               for s in (sq, sk, sk))
+    out = flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref = flash_attention_reference(q.float(), k.float(), v.float(), scale)
+    assert torch.isfinite(out).all()
     assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
 
 
@@ -92,6 +115,45 @@ def test_attention_dispatch_launches_kernel_on_card():
     assert flash_attention.launches == before + 1
     attention(q, k77, k77)  # cross-attention stays on the math path
     assert flash_attention.launches == before + 1
+
+
+def _copy_sources(name, dst):
+    """Copy ``csrc/<name>.cu`` and the headers it includes into ``dst``;
+    returns the copied source's text."""
+    src = cuda_build.CSRC_DIR / f"{name}.cu"
+    for header in cuda_build.local_headers(src):
+        shutil.copy(header, dst / header.name)
+    return src.read_text()
+
+
+@pytest.mark.cuda
+def test_flash_check_catches_a_skipped_key_tile_on_card(tmp_path, monkeypatch):
+    """Mutation check: a copy of the bf16 kernel whose consumers drop their
+    second key tile (its probabilities zeroed, its scores left out of the
+    running max and sum) must fail the comparison with the plain version."""
+    _card()
+    softmax = ("online_softmax<BN, kNegScale, kSplitExp>(s, m_run, l_run, corr, scale_log2, n * BN,\n"
+               "                                               sk, n == n_tiles - 1);")
+    src = _copy_sources("flash_attention", tmp_path)
+    assert src.count(softmax) == 1
+    skip = ("if (n == 1) { corr[0] = corr[1] = 1.f; for (int i = 0; i < BN / 2; ++i) s[i] = 0.f; }"
+            " else " + softmax)
+    (tmp_path / "flash_attention.cu").write_text(src.replace(softmax, skip))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    lib = ctypes.CDLL(str(cuda_build.build_library("flash_attention")))
+    fn = lib.tm_flash_attention_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    monkeypatch.setattr(flash_module, "_launcher", lambda: (lib, fn))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((40, 1024, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    rel = _rel(out, flash_attention_reference(q.float(), k.float(), v.float()))
+    print(f"bf16 kernel with its second key tile skipped: max err / max |plain| = {rel:.3e}")
+    assert rel > 1e-2
 
 
 def _int8_case(bh, sq, sk, dh, seed):
@@ -184,6 +246,24 @@ def test_build_reuses_the_library_of_the_same_source(tmp_path, monkeypatch):
 
     monkeypatch.setattr(cuda_build, "find_nvcc", no_nvcc)
     assert cuda_build.build_library("flash_attention") == path
+
+
+def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """An edited header gives a new library path (so it is rebuilt), and a
+    source that includes no header keeps its path."""
+    assert [h.name for h in cuda_build.local_headers(cuda_build.CSRC_DIR / "flash_attention.cu")] \
+        == ["hopper.cuh"]
+    _copy_sources("flash_attention", tmp_path)
+    shutil.copy(cuda_build.CSRC_DIR / "flash_attention.cu", tmp_path)
+    shutil.copy(cuda_build.CSRC_DIR / "short_attention.cu", tmp_path)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    before = cuda_build.library_path("flash_attention"), cuda_build.library_path("short_attention")
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = cuda_build.library_path("flash_attention"), cuda_build.library_path("short_attention")
+    assert after[0] != before[0] and after[1] == before[1]
+    assert cuda_build.library_path("flash_attention") == after[0]  # stable for the same bytes
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

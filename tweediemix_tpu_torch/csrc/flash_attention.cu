@@ -9,241 +9,432 @@
 //
 // over q [BH, Sq, D], k/v [BH, Sk, D] (contiguous, bf16), for D in
 // {64, 128, 256} and any Sq, Sk >= 1. Keys past Sk are masked inside the
-// kernel (no padded copies), the denominator is floored at 1e-30 like the
-// TPU kernel, and the output has q's dtype.
+// kernel (no padded copies), the scale is folded with log2(e) into the fp32
+// scores and the softmax uses exp2, the running max and denominator are
+// fp32, the denominator is floored at 1e-30 like the TPU kernel's, and the
+// output is bf16.
 //
-// What bounds it on an H100: at the main path's shapes (S = 1024 and 4096,
-// D = 64) the work is 4*BH*Sq*Sk*D flops against 4*BH*S*D*2 bytes, i.e.
-// about S/2 flops per byte -- far above the card's ~295 bf16 flops/byte, so
-// the tensor cores, not HBM, are the limit. The design therefore keeps the
-// S x S scores out of device memory and runs both products on the tensor
-// cores:
-//   * one block of 4 warps per (64 query rows, bh); each warp owns 16 rows;
-//   * a loop over 64-key tiles (32 at D = 256) staged in shared memory;
-//   * q.k^T and p.v as mma.sync.m16n8k16 bf16 -> fp32, with the score
-//     fragment re-packed in registers as the A operand of p.v (no shared
-//     memory round trip for p);
-//   * the softmax scale folded into the fp32 scores together with log2(e),
-//     and exp2f for the exponentials; running max and sum per row in fp32.
-// It is deliberately simple: plain synchronous tile loads, scalar fragment
-// loads from padded shared memory, no TMA, no wgmma, no warp specialisation.
+// What bounds it on an H100. At the main path's shapes (S = 1024 and 4096,
+// D = 64) the work is 4*BH*Sq*Sk*D flops against 4*BH*S*D*2 bytes, about S/2
+// flops per byte, far above the card's ~295 bf16 flops per byte: the tensor
+// cores bound it (0.174 ms at (40, 4096, 4096, 64)). At D = 64 the softmax
+// is a second bound just as high: one exp2 per score on the special-function
+// units (16 per clock per SM) takes 1/16 of an SM clock, as do the score's
+// 256 flops on the tensor cores (4096 per clock per SM), so at one clock the
+// two floors are equal (0.174 ms at the same shape). So the design keeps the
+// tensor cores fed from shared memory without the threads' help, and runs
+// one warpgroup's exponentials while the other's products run:
+//   * one block of three warpgroups per 128 query rows of one (b, h): a
+//     producer warpgroup (its registers lowered to 24 by setmaxnreg) whose
+//     one thread issues every load, and two consumer warpgroups (raised to
+//     240) of 64 query rows each, so every K/V tile is read once per 128
+//     queries;
+//   * TMA loads of Q once and of K and V tiles of BN keys (128 at D = 64, 64
+//     at D = 128, 32 at D = 256, so that the S, P and O registers fit the
+//     consumers' 240 without spilling) into a ring of three stages, through
+//     3-D tensor maps over [BH, S, D] with 128-byte swizzle, so rows past Sq
+//     or Sk in one head read as zeros, never the next head's rows; `full`
+//     mbarriers (counted in bytes) hand a stage to the consumers and an
+//     `empty` mbarrier hands it back;
+//   * S = Q.K^T as wgmma m64nBNk16 with both operands in shared memory
+//     (K-major descriptors), O += P.V as wgmma m64nDk16 with P from
+//     registers (the fp32 accumulator of S packed to bf16x2 is the register A
+//     fragment) and V through a transposed (MN-major) descriptor;
+//   * within a consumer, tile n's Q.K^T is issued together with tile n-1's
+//     P.V, and tile n's softmax runs while both are in flight; across the two
+//     consumers, two named barriers hand the tensor cores back and forth
+//     ("ping-pong"), so one warpgroup's softmax overlaps the other's
+//     products;
+//   * at D = 64 the softmax, not the products, sets the pace, so it is kept
+//     short: the row max is taken on the unscaled scores and the scale is
+//     folded into the exponent's FMA, and max and sum run over four partial
+//     values per row instead of one chain; the key mask costs only the last
+//     key tile (a branch); the output is stored straight from registers
+//     with rows past Sq skipped.
 //
 // C interface (loaded with ctypes): see tm_flash_attention_bf16 below.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockM = 16 * kWarps;  // query rows per block
-constexpr float kNegInf = -1e30f;     // the TPU kernel's NEG_INF
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kTurnBarrier = 1;   // named barriers 1.. : the consumers' turns
+constexpr float kNegInf = -1e30f; // the TPU kernel's NEG_INF
+
+constexpr int kConsumers = 2;     // consumer warpgroups of 64 query rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kBlockM = 64 * kConsumers;  // query rows per block
+constexpr int kStages = 3;        // K/V tiles in the ring
+constexpr int kProducerRegs = 24;  // setmaxnreg: 128 * (24 + 2 * 240) <= 65536
+constexpr int kConsumerRegs = 240;
+
+// One kernel configuration: D head dim, BN keys per K/V tile.
+template <int D_, int BN_>
+struct Cfg {
+  static constexpr int D = D_, BN = BN_;
+  static constexpr int kQBytes = kBlockM * D * 2;
+  static constexpr int kTileBytes = BN * D * 2;  // one K or V tile
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  // + 1 + 3 * kStages mbarriers, + 1024 to align the base for the swizzle
+  static constexpr int kSmemBytes = kBarOffset + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory");
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int s) {
+  wgmma_ss_m64n32(d, a, b, s);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int s) {
+  wgmma_ss_m64n64(d, a, b, s);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int s) {
+  wgmma_ss_m64n128(d, a, b, s);
 }
 
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_m64n64_tb(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_m64n128_tb(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_m64n256_tb(d, a, b);
 }
 
-__device__ __forceinline__ uint32_t pack_halves(__nv_bfloat16 lo,
-                                                __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// s = q . k^T for this warpgroup's 64 rows and BN keys. q and k sit in
+// shared memory as D/64 panels of [rows][64] (128-byte rows, swizzled);
+// q_panel and k_panel are the panels' byte strides.
+template <int D, int BN>
+__device__ __forceinline__ void issue_qk(float (&s)[BN / 2], uint32_t q_addr, uint32_t q_panel,
+                                         uint32_t k_addr) {
+  const uint64_t dq = desc_sw128(q_addr, 0), dk = desc_sw128(k_addr, 0);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t step = (kk % 4) * 32;  // k16 step inside a 64-wide panel
+    wgmma_ss<BN>(s, desc_advance(dq, (kk / 4) * q_panel + step),
+                 desc_advance(dk, (kk / 4) * (BN * 128) + step), kk > 0);
+  }
+  wgmma_commit();
 }
 
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 out.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// o += p . v over BN keys; p [64, BN] in registers as bf16x2, v [BN, D] in
+// shared memory as D/64 panels of [BN][64] (MN-major for this product).
+template <int D, int BN>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[BN / 4],
+                                         uint32_t v_addr) {
+  const uint64_t dv = desc_sw128(v_addr, BN * 128);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    wgmma_rs_tb<D>(o, a, desc_advance(dv, kk * 16 * 128));
+  }
+  wgmma_commit();
 }
 
-// Copy rows [row0, row0 + nrows) of a [total_rows, D] bf16 matrix into
-// shared memory with a row stride of D + 8 elements; rows past total_rows
-// are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int nrows, int total_rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-  for (int i = threadIdx.x; i < nrows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < total_rows) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
+// Accumulator layout of wgmma m64nN (per warp w of the warpgroup, g = lane / 4,
+// t = lane % 4): d[4j + e] is row 16w + g + 8 * (e >> 1), column 8j + 2t + (e & 1).
+// One thread holds parts of two rows; the row max and sum reduce over the
+// four lanes of a quad.
+//
+// The scale is folded into the exponent's FMA: the row extremum is taken on
+// the unscaled scores (the max for a scale >= 0, the min for kNegScale), so
+// scaled scores are never materialised. Max and sum run over four partial
+// values per row so that a single warp's softmax is not one long chain of
+// dependent instructions (the other consumer's products are all that
+// overlaps it). With kSplitExp one score in eight takes exp2_fma, which
+// moves that share of the exponentials from the exp2 unit (16 per clock per
+// SM) to the FMA units, which have room; at D = 64 the exp2 unit alone would
+// take about as long as both products.
+constexpr int kPartials = 4;
+
+// 2^x for x <= 0 on the FMA units instead of the exp2 unit: x is rounded to
+// the nearest integer n by a magic-number add, 2^(x - n) on [-0.5, 0.5] is a
+// degree-3 polynomial (relative error 1.2e-4, far below the bf16 rounding
+// of p), and n is added to the exponent bits. x <= -127 gives 0.
+__device__ __forceinline__ float exp2_fma(float x) {
+  x = fmaxf(x, -127.f);
+  const float t = x + 12582912.f;  // 1.5 * 2^23: n sits in the low mantissa bits
+  const float f = x - (t - 12582912.f);
+  const float p = fmaf(fmaf(fmaf(0.05459282f, f, 0.24221784f), f, 0.69336860f), f, 1.f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+
+template <int BN, bool kNegScale, bool kSplitExp>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m_run)[2],
+                                               float (&l_run)[2], float (&corr)[2],
+                                               float scale_log2, int n0, int sk, bool last) {
+  const float inf = __int_as_float(0x7f800000);
+  if (last) {  // keys past sk: scaled to -inf, so that their exp2 is exactly 0
+    const int t = threadIdx.x % 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (n0 + 8 * j + 2 * t + (e & 1) >= sk) s[4 * j + e] = kNegScale ? inf : -inf;
+      }
     }
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
+  }
+  float ext[2][kPartials];
+#pragma unroll
+  for (int i = 0; i < kPartials; ++i) ext[0][i] = ext[1][i] = kNegScale ? inf : -inf;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = ext[e >> 1][(2 * j + (e & 1)) % kPartials];
+      x = kNegScale ? fminf(x, s[4 * j + e]) : fmaxf(x, s[4 * j + e]);
+    }
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = ext[r][0];
+#pragma unroll
+    for (int i = 1; i < kPartials; ++i) {
+      x = kNegScale ? fminf(x, ext[r][i]) : fmaxf(x, ext[r][i]);
+    }
+#pragma unroll
+    for (int lane = 1; lane <= 2; lane *= 2) {
+      const float y = __shfl_xor_sync(0xffffffffu, x, lane);
+      x = kNegScale ? fminf(x, y) : fmaxf(x, y);
+    }
+    const float m_new = fmaxf(m_run[r], x * scale_log2);  // the row's max scaled score
+    corr[r] = ex2(m_run[r] - m_new);
+    m_run[r] = m_new;
+    l_run[r] *= corr[r];
+    neg_m[r] = -m_new;
+  }
+  float sum[2][kPartials];
+#pragma unroll
+  for (int i = 0; i < kPartials; ++i) sum[0][i] = sum[1][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = fmaf(s[4 * j + e], scale_log2, neg_m[e >> 1]);
+      const float p = kSplitExp && j % 8 == 7 ? exp2_fma(x) : ex2(x);
+      s[4 * j + e] = p;
+      sum[e >> 1][(2 * j + (e & 1)) % kPartials] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int i = 0; i < kPartials; ++i) l_run[r] += sum[r][i];
   }
 }
 
-template <int D, int BN>
-constexpr int smem_bytes() {
-  return (kBlockM + 2 * BN) * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+// The probabilities of key columns 16kk..16kk+15 are the register A
+// fragment of the kk-th k16 step of p . v.
+template <int BN>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BN / 4], const float (&s)[BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    p[4 * kk + 0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+  }
 }
 
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs: (row g, k 2t..2t+1), (row g+8, k 2t..), (row g, k 2t+8..), (row g+8, k 2t+8..)
-//   B regs: (k 2t..2t+1, col g), (k 2t+8..2t+9, col g)
-//   C/D:    (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1)
-template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int sq, int sk,
-                     float scale_log2) {
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockM * kStride;
-  __nv_bfloat16* vs = ks + BN * kStride;
+template <int D>
+__device__ __forceinline__ void scale_rows(float (&o)[D / 2], const float (&c)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j + 0] *= c[0];
+    o[4 * j + 1] *= c[0];
+    o[4 * j + 2] *= c[1];
+    o[4 * j + 3] *= c[1];
+  }
+}
+
+template <class C, bool kNegScale>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                     int sq, int sk, float scale_log2) {
+  constexpr int D = C::D, BN = C::BN;
+  constexpr bool kSplitExp = D == 64;  // where the exp2 unit rivals the products
+  constexpr int kPanels = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = smem;
+  unsigned char* kvs = smem + C::kQBytes;  // stage st: K at tile 2*st, V at tile 2*st + 1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kStages;
+  uint64_t* empty = bars + 1 + 2 * kStages;
 
   const int bh = blockIdx.y;
   const int m0 = blockIdx.x * kBlockM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t q_off = static_cast<size_t>(bh) * sq * D;
-  const size_t kv_off = static_cast<size_t>(bh) * sk * D;
+  const int n_tiles = (sk + BN - 1) / BN;
 
-  load_tile<D>(qs, q + q_off, m0, kBlockM, sq);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&empty[st], 128 * kConsumers);  // every consumer thread releases a stage
+    }
+    mbar_fence_init();
   }
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};  // per-thread partial row sums
-  const __nv_bfloat16* qw = qs + warp * 16 * kStride;
+  __syncthreads();
 
-  for (int n0 = 0; n0 < sk; n0 += BN) {
-    __syncthreads();  // previous tile fully consumed
-    load_tile<D>(ks, k + kv_off, n0, BN, sk);
-    load_tile<D>(vs, v + kv_off, n0, BN, sk);
-    __syncthreads();
-
-    // s = q . k^T for this warp's 16 rows and BN keys
-    float s[BN / 8][4];
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    }
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_3d(qs + p * kBlockM * 128, &tq, q_full, 64 * p, m0, bh);
+      }
+      int st = 0;
+      uint32_t phase = 0;
+      for (int n = 0; n < n_tiles; ++n) {
+        mbar_wait(&empty[st], phase ^ 1);  // the first round passes at once
+        unsigned char* ks = kvs + (2 * st) * C::kTileBytes;
+        unsigned char* vs = ks + C::kTileBytes;
+        mbar_arrive_expect_tx(&k_full[st], C::kTileBytes);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      const __nv_bfloat16* qa = qw + kk * 16 + 2 * t;
-      a[0] = ld_u32(qa + g * kStride);
-      a[1] = ld_u32(qa + (g + 8) * kStride);
-      a[2] = ld_u32(qa + g * kStride + 8);
-      a[3] = ld_u32(qa + (g + 8) * kStride + 8);
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load_3d(ks + p * BN * 128, &tk, &k_full[st], 64 * p, n * BN, bh);
+        }
+        mbar_arrive_expect_tx(&v_full[st], C::kTileBytes);
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const __nv_bfloat16* kb = ks + (j * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_16816(s[j], a, ld_u32(kb), ld_u32(kb + 8));
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load_3d(vs + p * BN * 128, &tv, &v_full[st], 64 * p, n * BN, bh);
+        }
+        if (++st == kStages) {
+          st = 0;
+          phase ^= 1;
+        }
       }
     }
+  } else {
+    // ---- consumer warpgroups of 64 query rows each ----
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const bool last_consumer = c == kConsumers - 1;
+    const int my_turn = kTurnBarrier + c;
+    const int next_turn = kTurnBarrier + (last_consumer ? 0 : c + 1);
+    const uint32_t q_addr = smem_u32(qs) + c * 64 * 128;
+    const uint32_t kv_addr = smem_u32(kvs);
 
-    // scale into the log2 domain, mask keys past sk, row max
-    float mx[2] = {kNegInf, kNegInf};
+    float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < sk ? s[j][e] * scale_log2 : kNegInf;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float s[BN / 2];
+    uint32_t p[BN / 4];
+    float m_run[2] = {kNegInf, kNegInf};
+    float l_run[2] = {0.f, 0.f};  // per-thread partial row sums
     float corr[2];
+
+    // Turn-taking: the consumers issue their products in the order 0, 1, ..
+    // Each waits for its turn before issuing and hands the turn to the next
+    // after; the last consumer's final hand-over would have no taker and is
+    // skipped.
+    if (last_consumer) named_bar_arrive(kTurnBarrier, 256);
+    mbar_wait(q_full, 0);
+
+    // tile 0: s = q . k^T, softmax
+    mbar_wait(&k_full[0], 0);
+    named_bar_sync(my_turn, 256);
+    issue_qk<D, BN>(s, q_addr, kBlockM * 128, kv_addr);
+    if (!(last_consumer && n_tiles == 1)) named_bar_arrive(next_turn, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    online_softmax<BN, kNegScale, kSplitExp>(s, m_run, l_run, corr, scale_log2, 0, sk,
+                                             n_tiles == 1);
+    pack_p<BN>(p, s);
+
+    int st = 0;  // stage of tile n - 1
+    uint32_t phase = 0;
+    for (int n = 1; n < n_tiles; ++n) {
+      const int st_n = st + 1 == kStages ? 0 : st + 1;
+      const uint32_t phase_n = st_n == 0 ? phase ^ 1 : phase;
+      mbar_wait(&k_full[st_n], phase_n);
+      named_bar_sync(my_turn, 256);
+      issue_qk<D, BN>(s, q_addr, kBlockM * 128, kv_addr + (2 * st_n) * C::kTileBytes);
+      scale_rows<D>(acc, corr);  // tile n - 1's rescale, before its p . v
+      mbar_wait(&v_full[st], phase);
+      issue_pv<D, BN>(acc, p, kv_addr + (2 * st + 1) * C::kTileBytes);
+      if (!(last_consumer && n == n_tiles - 1)) named_bar_arrive(next_turn, 256);
+      wgmma_wait<1>();  // q . k^T of tile n done
+      fence_regs(s);
+      online_softmax<BN, kNegScale, kSplitExp>(s, m_run, l_run, corr, scale_log2, n * BN,
+                                               sk, n == n_tiles - 1);
+      wgmma_wait<0>();  // p . v of tile n - 1 done: its stage and p are free
+      fence_regs(acc);
+      fence_regs(p);
+      mbar_arrive(&empty[st]);
+      pack_p<BN>(p, s);
+      st = st_n;
+      phase = phase_n;
+    }
+
+    // the last tile's p . v
+    scale_rows<D>(acc, corr);
+    mbar_wait(&v_full[st], phase);
+    issue_pv<D, BN>(acc, p, kv_addr + (2 * st + 1) * C::kTileBytes);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      corr[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= corr[r];
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = 1.f / fmaxf(l, 1e-30f);
     }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m_run[e >> 1]);
-        s[j][e] = p;
-        l_run[e >> 1] += p;
-      }
-    }
+    const int tid = threadIdx.x % 128;
+    const int row = m0 + c * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + row) * D + 2 * (tid % 4);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    // acc += p . v; the score fragments of key tiles 2kk and 2kk+1 are the
-    // A fragment of a k16 step
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_floats(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_floats(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_floats(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_floats(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vb = vs + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const __nv_bfloat16* vc = vb + j * 8;
-        const uint32_t b0 = pack_halves(vc[0], vc[kStride]);
-        const uint32_t b1 = pack_halves(vc[8 * kStride], vc[9 * kStride]);
-        mma_16816(acc[j], a, b0, b1);
+      if (row < sq) {
+        *reinterpret_cast<uint32_t*>(orow + j * 8) =
+            pack_bf16x2(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
       }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
-  }
-  const int row = m0 + warp * 16 + g;
-  __nv_bfloat16* orow = o + q_off + static_cast<size_t>(row) * D + 2 * t;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (row < sq) {
-      *reinterpret_cast<uint32_t*>(orow + j * 8) =
-          pack_floats(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-    }
-    if (row + 8 < sq) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * D + j * 8) =
-          pack_floats(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+      if (row + 8 < sq) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * D + j * 8) =
+            pack_bf16x2(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+      }
     }
   }
 }
 
-template <int D, int BN>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int sq, int sk, float scale_log2,
-                   cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<D, BN>();
+template <class C, bool kNegScale>
+cudaError_t launch_as(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+                      int sk, float scale_log2, cudaStream_t stream) {
   // The shared-memory attribute is set once per instance and device, not
   // per launch (setting it twice from two threads is harmless).
   static std::atomic<uint64_t> attr_set{0};
@@ -252,17 +443,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? (uint64_t{1} << dev) : 0;
   if (!bit || !(attr_set.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D, BN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    err = cudaFuncSetAttribute(flash_fwd_kernel<C, kNegScale>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
     if (err != cudaSuccess) return err;
     attr_set.fetch_or(bit, std::memory_order_release);
   }
+  CUtensorMap tq, tk, tv;
+  if (!encode_bf16_3d(&tq, q, bh, sq, C::D, kBlockM) ||
+      !encode_bf16_3d(&tk, k, bh, sk, C::D, C::BN) ||
+      !encode_bf16_3d(&tv, v, bh, sk, C::D, C::BN)) {
+    return cudaErrorInvalidValue;
+  }
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
-  flash_fwd_kernel<D, BN><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, scale_log2);
+  flash_fwd_kernel<C, kNegScale><<<grid, kThreads, C::kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, scale_log2);
   return cudaGetLastError();
+}
+
+// A negative softmax scale takes the instance that reduces rows by their min.
+template <class C>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
+                   float scale_log2, cudaStream_t stream) {
+  return scale_log2 < 0.f ? launch_as<C, true>(q, k, v, o, bh, sq, sk, scale_log2, stream)
+                          : launch_as<C, false>(q, k, v, o, bh, sq, sk, scale_log2, stream);
 }
 
 }  // namespace
@@ -270,21 +473,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q [bh, sq, dh], k/v [bh, sk, dh], o [bh, sq, dh]: contiguous bf16 device
-// pointers, 16-byte aligned. scale_log2 = softmax scale * log2(e). Launches
-// on `stream` without synchronising and returns the cudaError_t of the
-// launch (0 on success).
-int tm_flash_attention_bf16(const void* q, const void* k, const void* v,
-                            void* o, int bh, int sq, int sk, int dh,
-                            float scale_log2, void* stream) {
+// pointers, 16-byte aligned. scale_log2 = softmax scale * log2(e). Encodes
+// the three tensor maps, launches on `stream` without synchronising and
+// returns the cudaError_t of the launch (0 on success).
+int tm_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+                            int sk, int dh, float scale_log2, void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1) return cudaErrorInvalidValue;
+  // A zero scale (uniform weights) runs as the least normal float: every
+  // finite score then scales to within rounding of 0, while a masked key's
+  // infinite score still scales to -inf rather than to 0 * inf = NaN.
+  if (scale_log2 == 0.f) scale_log2 = FLT_MIN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 64:
-      return launch<64, 64>(q, k, v, o, bh, sq, sk, scale_log2, s);
+      return launch<Cfg<64, 128>>(q, k, v, o, bh, sq, sk, scale_log2, s);
     case 128:
-      return launch<128, 64>(q, k, v, o, bh, sq, sk, scale_log2, s);
+      return launch<Cfg<128, 64>>(q, k, v, o, bh, sq, sk, scale_log2, s);
     case 256:
-      return launch<256, 32>(q, k, v, o, bh, sq, sk, scale_log2, s);
+      return launch<Cfg<256, 32>>(q, k, v, o, bh, sq, sk, scale_log2, s);
     default:
       return cudaErrorInvalidValue;
   }

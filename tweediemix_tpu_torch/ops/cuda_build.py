@@ -4,9 +4,10 @@ Each kernel source under ``tweediemix_tpu_torch/csrc/`` exposes a plain C
 interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/`` at the repository root (listed in
 ``.gitignore``) and loaded with ``ctypes``. The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is built or imported when this module is
-imported.
+hash of the source, of every header it includes from ``csrc/`` (such as
+``hopper.cuh``) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. Nothing is built or imported when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -44,10 +47,28 @@ def find_nvcc() -> str:
     return found
 
 
+def local_headers(src: Path) -> list[Path]:
+    """The headers that ``src`` includes with quotes, directly or through
+    another such header, resolved beside the including file."""
+    found, todo = [], [src]
+    while todo:
+        including = todo.pop()
+        for inc in _LOCAL_INCLUDE.findall(including.read_text()):
+            header = including.parent / inc
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    """``build/lib<name>_<hash>.so``, the hash over the source and flags."""
+    """``build/lib<name>_<hash>.so``, the hash over the source, its local
+    headers and the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

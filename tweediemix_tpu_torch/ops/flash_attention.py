@@ -4,11 +4,16 @@ the int8 core of the W8A8 serving path) and their plain PyTorch versions.
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``tweediemix_tpu/ops/flash_attention.py::_flash_kernel``. It computes
 softmax(q·kᵀ·scale)·v over ``[BH, S, dh]`` with an online softmax over key
-tiles: bf16 operands on the tensor cores (``mma.sync``), fp32 running max,
-denominator and accumulator, the scale folded into the fp32 scores, keys
-past ``Sk`` masked inside the kernel and the denominator floored at 1e-30.
-At the main path's shapes it is bounded by tensor-core operations, not
-bytes; the source's header says what its design does about that. The v5e
+tiles: a Hopper kernel (TMA loads into an mbarrier ring, both products on
+``wgmma`` with bf16 operands, a producer warpgroup and two consumer
+warpgroups taking turns), fp32 running max, denominator and accumulator,
+the scale folded into the fp32 scores, keys past ``Sk`` masked inside the
+kernel and the denominator floored at 1e-30. At the main path's shapes it
+is bounded by tensor-core operations, not bytes, and at dh 64 the
+softmax's exp2 is a bound as high; the source's header says what its
+design does about that.
+The kernel's C entry point encodes three tensor maps per launch;
+``chip_smoke.py`` times the wrapper's host cost per call. The v5e
 devices of the TPU version (ones-column denominator, ``head_block``, block
 table, VMEM guard, bf16 rounding of the pre-scaled q) stay behind.
 

@@ -13,7 +13,9 @@ JAX or of the JAX package. Phases:
    time, the plain version's, one PyTorch library call's (a yardstick only)
    and the bound (for the bf16 kernel also the softmax's exp2 floor and the
    wrapper's host cost per call); the int8 kernel also against exact fp32
-   attention;
+   attention, with its exp2 and issue floors, and its two fused quantise
+   passes bitwise against their plain versions, timed against their byte
+   bound;
 3. reference: a small UNet and a short fusion sample on the card (bf16,
    through the kernel) against the same weights on the CPU (fp32, plain
    versions); with resampling, the card's distance from fp32 is held
@@ -29,8 +31,8 @@ JAX or of the JAX package. Phases:
    static per-site activation scales calibrated on the card for these
    weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
    attention core on (``TWEEDIEMIX_FLASH_INT8=1``): one warm and one timed
-   call, the int8 kernel's launch count checked and the bf16 kernel's held
-   at 0, then one batch-4 call profiled with the int8 core on and off;
+   call, the int8 kernel's and its quantise passes' launch counts checked
+   and the bf16 kernel's held at 0, then one batch-4 call profiled with the int8 core on and off;
 6. video: the short-sequence (frame-axis) kernel against its plain version
    at the video path's five shapes (as views of a merged qkv and
    contiguous) and its edge cases; a small UNet3D and a 3-step video
@@ -66,6 +68,12 @@ H100_SMS = 132
 # clock per SM (about 1830 MHz)
 H100_PEAK_CLOCK_HZ = H100_BF16_FLOPS / (H100_SMS * 4096)
 MUFU_EX2_PER_CLOCK_PER_SM = 16  # exp2 on the special-function units, sm_90
+ISSUE_PER_CLOCK_PER_SM = 128  # four schedulers, one warp instruction (32 threads) each
+# instructions per score of the int8 kernel at dh 64, counted once by hand
+# in the SASS of one build (cuobjdump -sass, the loop's path for a tile that
+# is not the last, over the 64 scores a consumer thread holds per tile): a
+# kernel edit can change it, so the issue floor it gives is only logged
+INT8_INSTR_PER_SCORE = 10.2
 # max |kernel - plain| / max |plain|, the plain version in fp32 on the same
 # bf16 inputs. randn q/k/v give outputs of std ~ sqrt(e/Sk), far below 1, so
 # the limit is relative: the kernel's bf16 output rounding alone reads up to
@@ -96,6 +104,10 @@ VIDEO_RATIO_TOL = 3.0
 INT8_EXACT_CORR, INT8_EXACT_REL, INT8_EXACT_L2 = 0.999, 0.12, 0.05
 INT8_JAX_TEST_SHAPES = [(4, 256, 256, 64), (2, 300, 300, 64), (2, 128, 128, 128),
                         (2, 300, 300, 128)]
+# q and k of randn x INT8_LOUD give a score scale q_s·k_s above 0.01, where
+# a rounded exponent addend would lift a row max's p8 to 128 (-128 as an s8
+# operand): held against the plain version like the main shapes
+INT8_LOUD, INT8_LOUD_SHAPES = 8.0, [(8, 1024, 1024, 64), (4, 1024, 1024, 128)]
 # A W8A8 UNet on the card (bf16) against the same int8 weights on the CPU
 # (fp32): an int8 rounding flips wherever bf16 moves an activation across a
 # half step, so the card's distance is held against the plain bf16 W8A8
@@ -280,24 +292,40 @@ def phase_kernels_int8() -> list:
     import torch
     import torch.nn.functional as F
 
+    from tweediemix_tpu_torch.ops import flash_attention as flash_module
     from tweediemix_tpu_torch.ops.flash_attention import (
         INT8_BLOCK_K,
         flash_attention_int8,
         flash_attention_int8_core,
         flash_attention_int8_core_reference,
+        pack_v_int8,
         quantize_qkv_int8,
+        quantize_qkv_int8_fused,
     )
 
+    lib, _ = flash_module._launcher_int8()
+    for dh, block in INT8_BLOCK_K.items():  # the plain version's block_k is the kernel's tile
+        if lib.tm_int8_block_k(dh) != block:
+            fail(f"int8 kernel tiles {lib.tm_int8_block_k(dh)} keys at dh {dh}, INT8_BLOCK_K {block}")
     results = []
     for bh, sq, sk, dh in INT8_MAIN_SHAPES + EDGE_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(bh * 11 + sq + sk + dh)
         q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
                    for s in (sq, sk, sk))
-        qkv8 = quantize_qkv_int8(q, k, v)
+        block = INT8_BLOCK_K[dh]
+        q8, k8, v8, scales = quantize_qkv_int8(q, k, v)
+        qkv8 = (q8, k8, pack_v_int8(v8, block), scales)  # the plain quantise's kernel inputs
+        fused = quantize_qkv_int8_fused(q, k, v)
         out = flash_attention_int8_core(*qkv8)
-        plain = flash_attention_int8_core_reference(*qkv8, INT8_BLOCK_K)  # fp32 output
+        plain = flash_attention_int8_core_reference(q8, k8, v8, scales, block)  # fp32 output
         wrapped = flash_attention_int8(q, k, v)
         torch.cuda.synchronize()
+        quant_err = 0.0
+        for name, want, have in zip(("q8", "k8", "vt8", "scales"), qkv8, fused):
+            if not (have.shape == want.shape and torch.equal(have, want)):
+                fail(f"fused int8 quantise's {name} differs from its plain version at "
+                     f"{(bh, sq, sk, dh)}")
+            quant_err = max(quant_err, (have.float() - want.float()).abs().max().item())
         if not torch.isfinite(out).all():
             fail(f"flash_attention_int8 non-finite output at {(bh, sq, sk, dh)}")
         if not torch.equal(out, wrapped):
@@ -308,21 +336,43 @@ def phase_kernels_int8() -> list:
         big = sq * sk >= 1024 * 1024
         reps = 20 if big else 50
         ms = cuda_ms(lambda: flash_attention_int8_core(*qkv8), reps)
+        quant_ms = cuda_ms(lambda: quantize_qkv_int8_fused(q, k, v), reps)
         wrapper_ms = cuda_ms(lambda: flash_attention_int8(q, k, v), reps)
-        plain_ms = cuda_ms(lambda: flash_attention_int8_core_reference(*qkv8, INT8_BLOCK_K), 3)
+        plain_ms = cuda_ms(lambda: flash_attention_int8_core_reference(q8, k8, v8, scales, block), 3)
+        quant_plain_ms = cuda_ms(lambda: pack_v_int8(quantize_qkv_int8(q, k, v)[2], block), 3)
         q4, k4, v4 = q[None], k[None], v[None]
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
         ops = 4.0 * bh * sq * sk * dh
         nbytes = 1.0 * bh * (sq + 2 * sk) * dh + 2.0 * bh * sq * dh  # int8 q/k/v, bf16 o
         t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+        scores = 1.0 * bh * sq * sk
+        # the softmax's floors, logged beside the bound, at the clock of the
+        # tensor peak: one exp2 per score on the special-function units, and
+        # the kernel's instructions per score at four schedulers' issue rate
+        exp2_ms = scores / (MUFU_EX2_PER_CLOCK_PER_SM * H100_SMS * H100_PEAK_CLOCK_HZ) * 1e3
+        issue_ms = (scores * INT8_INSTR_PER_SCORE
+                    / (ISSUE_PER_CLOCK_PER_SM * H100_SMS * H100_PEAK_CLOCK_HZ) * 1e3)
+        # the quantise: bf16 q/k/v read once, int8 q8/k8 and padded V^T
+        # written once (the two passes read the inputs twice)
+        skp = -(-sk // block) * block
+        q_in = 2.0 * bh * (sq + 2 * sk) * dh
+        q_out = 1.0 * bh * (sq + sk) * dh + 1.0 * bh * dh * skp
+        quant_bound_ms = (q_in + q_out) / H100_HBM_BYTES * 1e3
+        quant_two_pass_ms = (2 * q_in + q_out) / H100_HBM_BYTES * 1e3
         row = dict(shape=[bh, sq, sk, dh], max_abs_err=err, rel_err=rel, corr_exact=corr,
-                   rel_err_exact=rel_exact, l2_err_exact=l2_exact, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                   library_ms=None, sdpa_bf16_ms=sdpa_ms, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes", tops=ops / ms / 1e9)
+                   rel_err_exact=rel_exact, l2_err_exact=l2_exact, ms=ms, wrapper_ms=wrapper_ms,
+                   plain_ms=plain_ms, library_ms=None, sdpa_bf16_ms=sdpa_ms,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", tops=ops / ms / 1e9,
+                   quant_ms=quant_ms, quant_plain_ms=quant_plain_ms,
+                   quant_bound_ms=quant_bound_ms, quant_max_abs_err=quant_err)
         log(f"flash_attention_int8 {tuple(row['shape'])}: max_abs_err {err:.3e} rel_err {rel:.3e} "
             f"vs exact corr {corr:.6f} rel {rel_exact:.3e} l2 {l2_exact:.3e}; ms {ms:.4f} wrapper_ms "
             f"{wrapper_ms:.4f} plain_ms {plain_ms:.4f} sdpa_bf16_ms {sdpa_ms:.4f} bound_ms "
-            f"{row['bound_ms']:.4f} ({row['bound_by']}) {row['tops']:.1f} TOP/s")
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) exp2_floor_ms {exp2_ms:.4f} issue_floor_ms "
+            f"{issue_ms:.4f} {row['tops']:.1f} TOP/s; fused quantise bitwise equal, ms "
+            f"{quant_ms:.4f} plain_ms {quant_plain_ms:.4f} bound_ms {quant_bound_ms:.4f} "
+            f"(two passes {quant_two_pass_ms:.4f})")
         if not rel <= FLASH_REL_TOL:
             fail(f"flash_attention_int8 disagrees with its plain version at {(bh, sq, sk, dh)}: "
                  f"max err / max |plain| = {rel:.3e} > {FLASH_REL_TOL}")
@@ -330,8 +380,14 @@ def phase_kernels_int8() -> list:
             fail(f"flash_attention_int8 too far from exact attention at {(bh, sq, sk, dh)}: "
                  f"corr {corr:.6f}, L2 err / L2 {l2_exact:.3e}")
         results.append(row)
-        del q, k, v, q4, k4, v4, qkv8, out, plain, wrapped
+        del q, k, v, q4, k4, v4, q8, k8, v8, qkv8, fused, out, plain, wrapped
         torch.cuda.empty_cache()
+    # host cost of one call: the wrapper (two quantise passes and the kernel)
+    q = torch.randn((1, 128, 64), device="cuda").to(torch.bfloat16)
+    host_us = host_us_per_call(lambda: flash_attention_int8(q, q, q))
+    results[0]["host_us_per_call"] = host_us
+    log(f"flash_attention_int8 host cost per call while the device is busy (median of 5 x 200 "
+        f"calls): wrapper {host_us:.2f} us")
     for shape in INT8_JAX_TEST_SHAPES:  # the JAX package's test, on the card
         bh, sq, sk, dh = shape
         gen = torch.Generator(device="cuda").manual_seed(11)
@@ -343,6 +399,19 @@ def phase_kernels_int8() -> list:
         if not (corr > INT8_EXACT_CORR and rel_exact < INT8_EXACT_REL):
             fail(f"flash_attention_int8 outside the JAX test's bounds at {shape}: "
                  f"corr {corr:.6f}, max err / max {rel_exact:.3e}")
+    for bh, sq, sk, dh in INT8_LOUD_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").mul(m).to(torch.bfloat16)
+                   for s, m in ((sq, INT8_LOUD), (sk, INT8_LOUD), (sk, 1.0)))
+        q8, k8, v8, scales = quantize_qkv_int8(q, k, v)
+        plain = flash_attention_int8_core_reference(q8, k8, v8, scales, INT8_BLOCK_K[dh])
+        rel = (flash_attention_int8(q, k, v).float() - plain).abs().max().item() / \
+            plain.abs().max().item()
+        log(f"flash_attention_int8 {(bh, sq, sk, dh)} q, k x {INT8_LOUD}: score scale "
+            f"{scales[0].item():.4f}, max err / max |plain| {rel:.3e}")
+        if not rel <= FLASH_REL_TOL:
+            fail(f"flash_attention_int8 disagrees with its plain version on loud inputs at "
+                 f"{(bh, sq, sk, dh)}: {rel:.3e} > {FLASH_REL_TOL}")
     return results
 
 
@@ -623,7 +692,11 @@ def phase_w8a8_main_path() -> dict:
     from tweediemix_tpu_torch.fusion.sampler import FusionConfig
     from tweediemix_tpu_torch.models.unet2d import UNetConfig
     from tweediemix_tpu_torch.models.vae import VAEConfig
-    from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
+    from tweediemix_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_int8,
+        quantize_qkv_int8_fused,
+    )
     from tweediemix_tpu_torch.ops.quant import calibrate, load_static_scales, quant_sites
 
     n, seeds = 3, 4
@@ -667,6 +740,7 @@ def phase_w8a8_main_path() -> dict:
         for run in range(2):  # a warm call, then the timed one
             torch.cuda.reset_peak_memory_stats()
             flash_attention.launches = flash_attention_int8.launches = 0
+            quantize_qkv_int8_fused.launches = 0
             t0 = time.perf_counter()
             img = pipe.sample(embeds, seed=run, fg_masks=fg, num_seeds=seeds)
             torch.cuda.synchronize()
@@ -674,6 +748,7 @@ def phase_w8a8_main_path() -> dict:
             launches = flash_attention_int8.launches
             stats = dict(
                 s_per_call=wall, s_per_image=wall / seeds, int8_launches=launches,
+                quantize_launches=quantize_qkv_int8_fused.launches,
                 bf16_launches=flash_attention.launches,
                 phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
                 max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -687,9 +762,11 @@ def phase_w8a8_main_path() -> dict:
                 fail("W8A8: non-finite latent or image")
             if img.min().item() < 0.0 or img.max().item() > 1.0:
                 fail("W8A8: image outside [0, 1]")
-            if launches != expected or flash_attention.launches != 0:
-                fail(f"W8A8 main path: int8 kernel launched {launches} times (expected "
-                     f"{expected}), bf16 kernel {flash_attention.launches} (expected 0)")
+            if (launches != expected or quantize_qkv_int8_fused.launches != expected
+                    or flash_attention.launches != 0):
+                fail(f"W8A8 main path: int8 kernel launched {launches} times and its quantise "
+                     f"{quantize_qkv_int8_fused.launches} (expected {expected} each), bf16 kernel "
+                     f"{flash_attention.launches} (expected 0)")
             runs.append(stats)
         call = (embeds.concept_ctx, embeds.concept_pooled, torch.arange(b, device="cuda"))
         profile = {"w8a8_batch4_int8_core": profile_call(pipe, "w8a8_batch4_int8_core", *call)}
@@ -975,7 +1052,7 @@ def phase_video_main_path() -> dict:
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("short_attention", ("short_attn_kernel",)),
-    ("flash_attention_int8", ("flash_int8_fwd_kernel",)),
+    ("flash_attention_int8", ("flash_int8_wgmma_kernel", "absmax_kernel", "quantize_kernel<")),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("layout", ("nchwToNhwc", "nhwcToNchw")),
     ("convolution", ("fprop", "conv", "dgrad", "winograd")),
@@ -1087,7 +1164,13 @@ def main() -> None:
         entry("flash_attention_int8", "tweediemix_tpu_torch/csrc/flash_attention_int8.cu",
               "tweediemix_tpu/ops/flash_attention.py:113", w8a8["runs"][-1]["int8_launches"],
               int8_rows, wrapper_ms=int8_rows[0]["wrapper_ms"],
-              sdpa_bf16_ms=int8_rows[0]["sdpa_bf16_ms"]),
+              sdpa_bf16_ms=int8_rows[0]["sdpa_bf16_ms"],
+              host_us_per_call=int8_rows[0]["host_us_per_call"],
+              quantize=dict(launches=w8a8["runs"][-1]["quantize_launches"],
+                            ms=int8_rows[0]["quant_ms"], plain_ms=int8_rows[0]["quant_plain_ms"],
+                            bound_ms=int8_rows[0]["quant_bound_ms"], bound_by="bytes",
+                            max_abs_err=max(r["quant_max_abs_err"] for r in int8_rows),
+                            library_ms=None)),
         entry("short_attention", "tweediemix_tpu_torch/csrc/short_attention.cu",
               "tweediemix_tpu/ops/short_attention.py:51", video["runs"][-1]["launches"]["short"],
               short_rows),

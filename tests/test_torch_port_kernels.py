@@ -30,10 +30,14 @@ from tweediemix_tpu_torch.ops.flash_attention import (
     flash_attention_int8_core,
     flash_attention_int8_core_reference,
     flash_attention_reference,
+    pack_v_int8,
+    permuted_key,
     quantize_qkv_int8,
+    quantize_qkv_int8_fused,
 )
 
 from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
+from tweediemix_tpu_torch.tools import int8_variants
 
 INT8_TOL = 1e-2
 SHORT_TOL = 1e-2
@@ -160,9 +164,9 @@ def _int8_case(bh, sq, sk, dh, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
                for s in (sq, sk, sk))
-    qkv8 = quantize_qkv_int8(q, k, v)
-    plain = flash_attention_int8_core_reference(*qkv8, INT8_BLOCK_K)
-    return (q, k, v), qkv8, plain
+    q8, k8, v8, scales = quantize_qkv_int8(q, k, v)
+    plain = flash_attention_int8_core_reference(q8, k8, v8, scales, INT8_BLOCK_K[dh])
+    return (q, k, v), (q8, k8, pack_v_int8(v8, INT8_BLOCK_K[dh]), scales), plain
 
 
 def _rel(out, plain):
@@ -177,13 +181,50 @@ def _rel(out, plain):
 )
 def test_int8_kernel_matches_plain_on_card(bh, sq, sk, dh):
     _card()
-    (q, k, v), _, plain = _int8_case(bh, sq, sk, dh, bh + sq + sk + dh)
-    before = flash_attention_int8.launches
+    (q, k, v), qkv8, plain = _int8_case(bh, sq, sk, dh, bh + sq + sk + dh)
+    before = flash_attention_int8.launches, quantize_qkv_int8_fused.launches
     out = flash_attention_int8(q, k, v)
-    assert flash_attention_int8.launches == before + 1
+    assert (flash_attention_int8.launches, quantize_qkv_int8_fused.launches) == \
+        (before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert _rel(out, plain) <= INT8_TOL
+    # the core on the plain quantise's inputs gives the wrapper's output
+    assert torch.equal(flash_attention_int8_core(*qkv8), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_int8_kernel_matches_plain_on_loud_inputs_on_card(dh):
+    """q and k of randn x 8: a score scale above 0.01, where a rounded
+    exponent addend would lift a row max's p8 to 128, -128 as an s8 operand."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k = (torch.randn((4, 1024, dh), generator=gen, device="cuda").mul(8).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((4, 1024, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    q8, k8, v8, scales = quantize_qkv_int8(q, k, v)
+    assert scales[0].item() > 1e-2
+    plain = flash_attention_int8_core_reference(q8, k8, v8, scales, INT8_BLOCK_K[dh])
+    assert _rel(flash_attention_int8(q, k, v), plain) <= INT8_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bh,sq,sk,dh",
+    [(4, 1024, 1024, 64), (2, 300, 300, 128), (2, 1024, 77, 256), (1, 65, 4100, 64),
+     (3, 1, 1, 128), (2, 1, 333, 64), (2, 200, 333, 256), (5, 129, 45, 64)],
+)
+def test_int8_fused_quantise_is_bitwise_on_card(bh, sq, sk, dh):
+    """The two hand-written quantise passes give exactly quantize_qkv_int8's
+    q8, k8 and scales and pack_v_int8's V^T, ragged Sk and Sq = 1 included."""
+    _card()
+    (q, k, v), (q8, k8, vt8, scales), _ = _int8_case(bh, sq, sk, dh, 3 * bh + sq + sk + dh)
+    got = quantize_qkv_int8_fused(q, k, v)
+    torch.cuda.synchronize()
+    for name, want, have in zip(("q8", "k8", "vt8", "scales"), (q8, k8, vt8, scales), got):
+        assert have.shape == want.shape and have.dtype == want.dtype, name
+        assert torch.equal(have, want), name
 
 
 @pytest.mark.cuda
@@ -198,8 +239,14 @@ def test_int8_kernel_rejects_what_it_does_not_take_on_card():
         q32 = q[..., :32].contiguous()
         flash_attention_int8(q32, q32, q32)
     q8 = torch.zeros((2, 64, 64), device="cuda", dtype=torch.int8)
-    with pytest.raises(ValueError):
-        flash_attention_int8_core(q8, q8, q8, torch.ones(3, device="cuda"))
+    vt8 = torch.zeros((2, 64, INT8_BLOCK_K[64]), device="cuda", dtype=torch.int8)
+    scales = torch.ones(2, device="cuda")
+    with pytest.raises(ValueError, match="scales"):
+        flash_attention_int8_core(q8, q8, vt8, torch.ones(3, device="cuda"))
+    with pytest.raises(ValueError, match="scales"):
+        flash_attention_int8_core(q8, q8, vt8, scales.double())
+    with pytest.raises(ValueError, match="vt8"):
+        flash_attention_int8_core(q8, q8, q8, scales)  # natural v8, not V^T
 
 
 @pytest.mark.cuda
@@ -217,14 +264,16 @@ def test_int8_knob_dispatches_to_the_int8_kernel_on_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_int8_check_catches_a_skipped_key_tile_on_card(tmp_path, monkeypatch):
-    """Mutation check: a copy of the int8 kernel that skips its second key
-    tile must fail the comparison with the plain version."""
+    """Mutation check: a copy of the int8 kernel whose consumers drop their
+    second key tile (its p8 zeroed, its scores left out of the running max
+    and the denominator) must fail the comparison with the plain version."""
     _card()
-    loop = "for (int n0 = 0; n0 < sk; n0 += kBlockN) {"
-    src = (cuda_build.CSRC_DIR / "flash_attention_int8.cu").read_text()
-    assert src.count(loop) == 1
-    (tmp_path / "flash_attention_int8.cu").write_text(
-        src.replace(loop, loop + "\n    if (n0 == kBlockN) continue;"))
+    softmax = "softmax_int8<C, false>(s, m_run, den, corr, sc, n * BN, sk);"
+    src = _copy_sources("flash_attention_int8", tmp_path)
+    assert src.count(softmax) == 1
+    skip = ("if (n == 1) { corr[0] = corr[1] = 1.f; for (int i = 0; i < BN / 2; ++i) s[i] = kMagic; }"
+            " else " + softmax)
+    (tmp_path / "flash_attention_int8.cu").write_text(src.replace(softmax, skip))
     monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
     lib = ctypes.CDLL(str(cuda_build.build_library("flash_attention_int8")))
@@ -233,6 +282,57 @@ def test_int8_check_catches_a_skipped_key_tile_on_card(tmp_path, monkeypatch):
     rel = _rel(flash_attention_int8_core(*qkv8), plain)
     print(f"int8 kernel with its second key tile skipped: max err / max |plain| = {rel:.3e}")
     assert rel > INT8_TOL
+
+
+@pytest.mark.parametrize("bh,sk,dh,block", [(2, 45, 64, 128), (1, 77, 128, 64), (3, 33, 256, 32),
+                                            (1, 1, 64, 128), (2, 256, 64, 128), (1, 70, 32, 32)])
+def test_pack_v_int8_round_trips_and_follows_permuted_key(bh, sk, dh, block):
+    """V^T as the int8 kernel reads it: keys padded with zeros to a multiple
+    of the block, transposed, and within each 32-key step position 4t+i
+    holding key 2t + (i&1) + 8(i>>1) (+16 in the upper half), the columns
+    that an s32 accumulator fragment gives lane t of each quad."""
+    order = [permuted_key(kp) for kp in range(32)]
+    assert sorted(order) == list(range(32))
+    for t in range(4):
+        for i in range(4):
+            for half in (0, 16):
+                assert order[half + 4 * t + i] == half + 2 * t + (i & 1) + 8 * (i >> 1)
+    gen = torch.Generator().manual_seed(bh + sk + dh)
+    v8 = torch.randint(-127, 128, (bh, sk, dh), generator=gen, dtype=torch.int8)
+    vt = pack_v_int8(v8, block)
+    skp = -(-sk // block) * block
+    assert vt.shape == (bh, dh, skp) and vt.dtype == torch.int8 and vt.is_contiguous()
+    back = torch.zeros((bh, skp, dh), dtype=torch.int8)
+    for kp in range(skp):
+        back[:, (kp // 32) * 32 + order[kp % 32]] = vt[:, :, kp]
+    assert torch.equal(back[:, :sk], v8)
+    assert not back[:, sk:].any()
+
+
+@pytest.mark.parametrize("name", sorted(int8_variants.VARIANTS))
+def test_int8_variants_apply_to_the_kernel_source(name):
+    """Each variant that tools/int8_variants.py builds replaces lines that
+    are in the kernel's source exactly once."""
+    src = (cuda_build.CSRC_DIR / "flash_attention_int8.cu").read_text()
+    out = int8_variants.variant_source(src, int8_variants.VARIANTS[name])
+    assert (out == src) == (name == "kernel")
+
+
+def test_int8_plain_takes_the_kernel_tile_or_an_explicit_block_k():
+    """The plain core's default block_k is the kernel's key tile of that dh;
+    a dh that the kernel does not take has no default."""
+    gen = torch.Generator().manual_seed(5)
+    for dh in (32, 64, 128, 256):
+        q, k, v = (torch.randn((1, 40, dh), generator=gen) for _ in range(3))
+        q8, k8, v8, scales = quantize_qkv_int8(q, k, v)
+        if dh in INT8_BLOCK_K:
+            assert torch.equal(flash_attention_int8_core_reference(q8, k8, v8, scales),
+                               flash_attention_int8_core_reference(q8, k8, v8, scales,
+                                                                   INT8_BLOCK_K[dh]))
+        else:
+            with pytest.raises(ValueError, match="dh"):
+                flash_attention_int8_core_reference(q8, k8, v8, scales)
+            assert flash_attention_int8_core_reference(q8, k8, v8, scales, 32).shape == q.shape
 
 
 def test_build_reuses_the_library_of_the_same_source(tmp_path, monkeypatch):

@@ -200,14 +200,20 @@ def test_quantised_modules_keep_fp32_scales_and_no_float_weight():
                                          (2, 128, 128, 128), (2, 300, 300, 128)])
 def test_int8_flash_plain_matches_pallas_interpret(bh, sq, sk, dh):
     """The count-column denominator (dh=64), the row-sum one (dh=128), and
-    ragged keys, at the shapes of test_attention.py's int8 test."""
+    ragged keys, at the shapes of test_attention.py's int8 test; at block_k
+    128 and at the Hopper kernel's block width for this dh (INT8_BLOCK_K),
+    which is also the plain version's default."""
     rng = np.random.default_rng(bh * 1000 + sq + sk + dh)
     q, k, v = _randn(rng, (bh, sq, dh)), _randn(rng, (bh, sk, dh)), _randn(rng, (bh, sk, dh))
-    want = np.asarray(jax_flash(q, k, v, block_q=128, block_k=128, interpret=True,
-                                int8_qkpv=True))
-    got = flash_attention_int8_reference(*map(torch.from_numpy, (q, k, v)), block_k=128)
-    assert got.shape == (bh, sq, dh) and got.dtype == torch.float32
-    assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+    for block_k in sorted({128, INT8_BLOCK_K[dh]}):
+        want = np.asarray(jax_flash(q, k, v, block_q=128, block_k=block_k, interpret=True,
+                                    int8_qkpv=True))
+        got = flash_attention_int8_reference(*map(torch.from_numpy, (q, k, v)), block_k=block_k)
+        assert got.shape == (bh, sq, dh) and got.dtype == torch.float32
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+        if block_k == INT8_BLOCK_K[dh]:
+            default = flash_attention_int8_reference(*map(torch.from_numpy, (q, k, v)))
+            assert torch.equal(default, got)
 
 
 def test_int8_flash_depends_on_block_width_and_stays_near_exact():
@@ -216,7 +222,7 @@ def test_int8_flash_depends_on_block_width_and_stays_near_exact():
     against exact attention (corr > 0.999, max err < 0.12 of max)."""
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(_randn(rng, (2, 256, 64))) for _ in range(3))
-    narrow = flash_attention_int8_reference(q, k, v, block_k=INT8_BLOCK_K)
+    narrow = flash_attention_int8_reference(q, k, v, block_k=INT8_BLOCK_K[64])
     wide = flash_attention_int8_reference(q, k, v, block_k=256)
     assert not torch.equal(narrow, wide)
     exact = flash_attention_reference(q, k, v).numpy().ravel()
@@ -232,7 +238,7 @@ def test_int8_knob_sends_flash_sites_to_the_int8_core_on_cpu(monkeypatch):
     q, k, v = (torch.from_numpy(_randn(rng, (2, 1024, 64), 0.5)) for _ in range(3))
     monkeypatch.setenv("TWEEDIEMIX_FLASH_INT8", "1")
     got = port_attn.attention(q, k, v)
-    assert torch.equal(got, flash_attention_int8_reference(q, k, v, block_k=INT8_BLOCK_K))
+    assert torch.equal(got, flash_attention_int8_reference(q, k, v, block_k=INT8_BLOCK_K[64]))
     assert torch.equal(flash_attention(q, k, v, int8_qkpv=True), got)
     k77 = k[:, :77]
     assert torch.equal(port_attn.attention(q, k77, k77), port_attn.math_attention(q, k77, k77, 0.125))

@@ -168,18 +168,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[
 // take about as long as both products.
 constexpr int kPartials = 4;
 
-// 2^x for x <= 0 on the FMA units instead of the exp2 unit: x is rounded to
-// the nearest integer n by a magic-number add, 2^(x - n) on [-0.5, 0.5] is a
-// degree-3 polynomial (relative error 1.2e-4, far below the bf16 rounding
-// of p), and n is added to the exponent bits. x <= -127 gives 0.
-__device__ __forceinline__ float exp2_fma(float x) {
-  x = fmaxf(x, -127.f);
-  const float t = x + 12582912.f;  // 1.5 * 2^23: n sits in the low mantissa bits
-  const float f = x - (t - 12582912.f);
-  const float p = fmaf(fmaf(fmaf(0.05459282f, f, 0.24221784f), f, 0.69336860f), f, 1.f);
-  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
-}
-
 template <int BN, bool kNegScale, bool kSplitExp>
 __device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m_run)[2],
                                                float (&l_run)[2], float (&corr)[2],

@@ -136,6 +136,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // Shared-memory matrix descriptor of a tile written by TMA with 128-byte
 // swizzle: rows of 128 bytes (64 bf16), 8-row swizzle atoms of 1024 bytes.
 //   K-major operand (K contiguous): SBO = 1024 (the next 8 rows of M/N), LBO
@@ -147,6 +153,19 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr, uint32_t lbo_
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>(1024 >> 4) << 32;
   d |= static_cast<uint64_t>(1) << 62;  // layout type 1: 128-byte swizzle
+  return d;
+}
+
+// K-major descriptor of a tile written by TMA with the swizzle of its row
+// width: rows of `row_bytes` (128, 64 or 32) bytes, 8-row atoms of
+// 8 * row_bytes bytes (SBO); layout type 1, 2 or 3 (128-, 64-, 32-byte
+// swizzle). A k step inside a row adds its byte offset to the start.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t smem_addr, uint32_t row_bytes) {
+  uint64_t d = static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1) << 16;  // LBO: unused by swizzled K-major tiles
+  d |= static_cast<uint64_t>((8 * row_bytes) >> 4) << 32;
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  d |= layout << 62;
   return d;
 }
 
@@ -164,6 +183,18 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 2^x for x <= 0 on the FMA units instead of the exp2 unit: x is rounded to
+// the nearest integer n by a magic-number add, 2^(x - n) on [-0.5, 0.5] is a
+// degree-3 polynomial (relative error 1.2e-4, far below the bf16 rounding
+// of p), and n is added to the exponent bits. x <= -127 gives 0.
+__device__ __forceinline__ float exp2_fma(float x) {
+  x = fmaxf(x, -127.f);
+  const float t = x + 12582912.f;  // 1.5 * 2^23: n sits in the low mantissa bits
+  const float f = x - (t - 12582912.f);
+  const float p = fmaf(fmaf(fmaf(0.05459282f, f, 0.24221784f), f, 0.69336860f), f, 1.f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -324,6 +355,89 @@ __device__ __forceinline__ void wgmma_rs_m64n256_tb(float (&d)[128], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// -- wgmma, 8-bit integers ----------------------------------------------------
+//
+// d (+)= a . b over one k32 step, s8 in, s32 out. 8-bit wgmma takes both
+// operands K-major only: b from a K-major descriptor; a from a K-major
+// descriptor (_ss) or from registers (_rs: four 32-bit registers of four
+// s8 each, the layout of mma.m16n8k32's A fragment within each warp).
+// scale_d = 0 overwrites d instead of adding to it.
+
+#define HOPPER_R4(b) "+r"(d[b]), "+r"(d[b + 1]), "+r"(d[b + 2]), "+r"(d[b + 3])
+#define HOPPER_R16(b) HOPPER_R4(b), HOPPER_R4(b + 4), HOPPER_R4(b + 8), HOPPER_R4(b + 12)
+#define HOPPER_D16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_D32                                                                   \
+  HOPPER_D16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+             "%30, %31"
+#define HOPPER_D64                                                                     \
+  HOPPER_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "   \
+             "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+             "%61, %62, %63"
+
+__device__ __forceinline__ void wgmma_s8_ss_m64n32(int (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {" HOPPER_D16 "}, %16, %17, p;\n}\n"
+      : HOPPER_R16(0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_ss_m64n64(int (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" HOPPER_D32 "}, %32, %33, p;\n}\n"
+      : HOPPER_R16(0), HOPPER_R16(16)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_ss_m64n128(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" HOPPER_D64 "}, %64, %65, p;\n}\n"
+      : HOPPER_R16(0), HOPPER_R16(16), HOPPER_R16(32), HOPPER_R16(48)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_m64n32(int (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {" HOPPER_D16
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : HOPPER_R16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_m64n64(int (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" HOPPER_D32
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : HOPPER_R16(0), HOPPER_R16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_m64n128(int (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" HOPPER_D64
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : HOPPER_R16(0), HOPPER_R16(16), HOPPER_R16(32), HOPPER_R16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+#undef HOPPER_R4
+#undef HOPPER_R16
+#undef HOPPER_D16
+#undef HOPPER_D32
+#undef HOPPER_D64
+
 // -- host: tensor maps --------------------------------------------------------
 
 // cuTensorMapEncodeTiled is a driver function. It is reached through the
@@ -364,6 +478,30 @@ inline bool encode_bf16_3d(CUtensorMap* map, const void* ptr, int outer, int row
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D tensor map over a contiguous int8 tensor [outer, rows, cols] with
+// boxes of [1, box_rows, box_cols] and the swizzle of a box row's width
+// (box_cols = 128, 64 or 32 bytes), the layout `desc_kmajor` describes. Rows
+// past `rows` of one outer index read as zeros. Returns false if the driver
+// refuses it.
+inline bool encode_s8_3d(CUtensorMap* map, const void* ptr, int outer, int rows, int cols,
+                         int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols),
+                                 static_cast<cuuint64_t>(rows) * cols};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -127,15 +127,19 @@ flash_attention.launches = 0
 # -- the int8 attention core (W8A8 serving) -----------------------------------
 #
 # The kernel (csrc/flash_attention_int8.cu) replaces the Pallas TPU kernel
-# tweediemix_tpu/ops/flash_attention.py::_flash_kernel_int8. Its wrapper
-# quantises q (pre-scaled by scale·log2(e) and rounded back to q's dtype), k
-# and v to int8 with per-tensor abs-max scales; the kernel runs both products
-# in int32 and requantises the probabilities as p8 = round(127·p) against the
-# running max of its 64-key tiles. These linear passes stay torch ops.
+# tweediemix_tpu/ops/flash_attention.py::_flash_kernel_int8, and its two
+# quantise passes replace that wrapper's quantise. q is pre-scaled by
+# scale·log2(e) and rounded back to q's dtype, then q, k and v are quantised
+# to int8 with per-tensor abs-max scales; the kernel runs both products in
+# int32 and requantises the probabilities as p8 = round(127·p) against the
+# running max of its key tiles. 8-bit wgmma takes V transposed, so the
+# quantise pass writes V^T with the keys of each 32-key step permuted
+# (``pack_v_int8``).
 
-# keys per tile of the int8 kernel: p8 depends on it, so the plain version
-# takes the same block_k on the CPU
-INT8_BLOCK_K = 64
+# keys per tile of the int8 kernel, by head dim: p8 depends on it, so the
+# plain version takes the same block_k on the CPU (the kernel library's
+# tm_int8_block_k gives the same numbers)
+INT8_BLOCK_K = {64: 128, 128: 64, 256: 32}
 
 
 def quantize_qkv_int8(q, k, v, scale: float | None = None):
@@ -154,15 +158,47 @@ def quantize_qkv_int8(q, k, v, scale: float | None = None):
     return q8, k8, v8, torch.stack([q_s * k_s, 127.0 * v_s])
 
 
-def flash_attention_int8_core_reference(q8, k8, v8, scales, block_k: int = INT8_BLOCK_K,
+def permuted_key(kp: int) -> int:
+    """The key (within its 32-key step) at position ``kp`` of that step of
+    V^T: position 4t+i holds key 2t + (i&1) + 8(i>>1), +16 in the upper half,
+    which is where the s32 score layout leaves the thread's p8 values."""
+    r = kp & 15
+    i = r & 3
+    return (kp & 16) + 2 * (r >> 2) + (i & 1) + 8 * (i >> 1)
+
+
+_KEY_ORDER = [permuted_key(kp) for kp in range(32)]
+
+
+def pack_v_int8(v8: torch.Tensor, block: int) -> torch.Tensor:
+    """Plain version of V^T as the int8 kernel reads it: v8 [BH, Sk, dh] to
+    [BH, dh, Skp], the keys padded with zeros to Skp, a multiple of
+    ``block`` (a multiple of 32), and permuted within each 32-key step."""
+    if block % 32:
+        raise ValueError(f"block must be a multiple of 32, got {block}")
+    bh, sk, dh = v8.shape
+    skp = -(-sk // block) * block
+    padded = torch.zeros((bh, skp, dh), dtype=v8.dtype, device=v8.device)
+    padded[:, :sk] = v8
+    pos = torch.arange(skp, device=v8.device)
+    order = torch.tensor(_KEY_ORDER, device=v8.device)
+    return padded[:, (pos & ~31) + order[pos & 31]].transpose(1, 2).contiguous()
+
+
+def flash_attention_int8_core_reference(q8, k8, v8, scales, block_k: int | None = None,
                                         out_dtype=torch.float32) -> torch.Tensor:
-    """Plain version of the int8 core: the kernel's blocked online softmax
-    over key blocks of ``block_k``, p8 quantised against the running max.
+    """Plain version of the int8 core on natural v8 [BH, Sk, dh]: the
+    kernel's blocked online softmax over key blocks of ``block_k`` (default
+    the kernel's, ``INT8_BLOCK_K[dh]``; a dh the kernel does not take needs
+    an explicit block_k), p8 quantised against the running max.
 
     The int8 products are taken in fp32, which is exact here: every partial
     sum is an integer below 127²·max(dh, block_k) ≤ 127²·1024 < 2^24."""
     sq, dh = q8.shape[1], q8.shape[2]
     sk = k8.shape[1]
+    if block_k is None:
+        _check_int8_head_dim(dh)
+        block_k = INT8_BLOCK_K[dh]
     score_scale, out_scale = scales[0], scales[1]
     count_column = dh % 128 != 0  # the TPU kernel's 127 column of v
     qf = q8.float()
@@ -189,7 +225,7 @@ def flash_attention_int8_core_reference(q8, k8, v8, scales, block_k: int = INT8_
 
 
 def flash_attention_int8_reference(q, k, v, scale: float | None = None,
-                                   block_k: int = INT8_BLOCK_K) -> torch.Tensor:
+                                   block_k: int | None = None) -> torch.Tensor:
     """Plain version of the int8 attention: quantise, then the blocked core.
     Output in q's dtype."""
     _check(q, k, v)
@@ -198,11 +234,16 @@ def flash_attention_int8_reference(q, k, v, scale: float | None = None,
 
 
 def bind_int8(lib):
-    """The typed C entry point of a built int8 kernel library."""
-    fn = lib.tm_flash_attention_int8
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return fn
+    """The typed C entry points of a built int8 kernel library: (attention,
+    quantise)."""
+    attend = lib.tm_flash_attention_int8
+    attend.restype = ctypes.c_int
+    attend.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    quantize = lib.tm_quantize_qkv_int8
+    quantize.restype = ctypes.c_int
+    quantize.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                         + [ctypes.c_float, ctypes.c_void_p])
+    return attend, quantize
 
 
 @functools.cache
@@ -211,25 +252,65 @@ def _launcher_int8():
     return lib, bind_int8(lib)
 
 
-def flash_attention_int8_core(q8, k8, v8, scales) -> torch.Tensor:
-    """Launch the int8 kernel on quantised CUDA inputs; returns bf16
-    [BH, Sq, dh]. ``flash_attention_int8.launches`` counts the launches."""
-    bh, sq, dh = q8.shape
-    sk = k8.shape[1]
+def _check_int8_head_dim(dh: int) -> None:
     if dh not in HEAD_DIMS:
         raise ValueError(f"int8 flash kernel takes dh in {HEAD_DIMS}, got {dh}")
+
+
+def quantize_qkv_int8_fused(q, k, v, scale: float | None = None):
+    """The int8 core's inputs from bf16 CUDA q/k/v [BH, S, dh] in two
+    hand-written passes (abs-max, then quantise): (q8, k8, vt8, scales), vt8
+    = ``pack_v_int8(v8, INT8_BLOCK_K[dh])``, each bitwise equal to
+    ``quantize_qkv_int8`` and ``pack_v_int8`` on the card.
+    ``quantize_qkv_int8_fused.launches`` counts the calls that launch them."""
+    bh, sq, dh = q.shape
+    sk = k.shape[1]
+    _check_int8_head_dim(dh)
+    if scale is None:
+        scale = dh ** -0.5
+    lib, (_, fn) = _launcher_int8()
+    skp = -(-sk // INT8_BLOCK_K[dh]) * INT8_BLOCK_K[dh]
+    q8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
+    k8 = torch.empty(k.shape, dtype=torch.int8, device=q.device)
+    vt8 = torch.empty((bh, dh, skp), dtype=torch.int8, device=q.device)
+    ws = torch.empty(5, dtype=torch.float32, device=q.device)  # abs-max scratch, scales
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q8.data_ptr(), k8.data_ptr(),
+                 vt8.data_ptr(), ws.data_ptr(), bh, sq, sk, dh,
+                 scale * math.log2(math.e), stream)
+    check_launch(lib, err, "quantize_qkv_int8_fused")
+    quantize_qkv_int8_fused.launches += 1
+    return q8, k8, vt8, ws[3:]
+
+
+quantize_qkv_int8_fused.launches = 0
+
+
+def flash_attention_int8_core(q8, k8, vt8, scales) -> torch.Tensor:
+    """Launch the int8 kernel on quantised CUDA inputs, q8 [BH, Sq, dh], k8
+    [BH, Sk, dh] and vt8 = ``pack_v_int8(v8, INT8_BLOCK_K[dh])``; returns
+    bf16 [BH, Sq, dh]. ``flash_attention_int8.launches`` counts the
+    launches."""
+    bh, sq, dh = q8.shape
+    sk = k8.shape[1]
+    _check_int8_head_dim(dh)
     if bh > 65535:
         raise ValueError(f"int8 flash kernel takes BH <= 65535, got {bh}")
-    for name, t in (("q8", q8), ("k8", k8), ("v8", v8)):
+    skp = -(-sk // INT8_BLOCK_K[dh]) * INT8_BLOCK_K[dh]
+    if k8.shape != (bh, sk, dh) or vt8.shape != (bh, dh, skp):
+        raise ValueError(f"int8 flash kernel needs k8 {(bh, sk, dh)} and vt8 {(bh, dh, skp)}, "
+                         f"got {tuple(k8.shape)}, {tuple(vt8.shape)}")
+    for name, t in (("q8", q8), ("k8", k8), ("vt8", vt8)):
         if t.dtype != torch.int8 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int8 flash kernel needs contiguous, 16-byte aligned int8 {name}")
     if scales.dtype != torch.float32 or scales.numel() != 2 or not scales.is_contiguous():
         raise ValueError("int8 flash kernel needs fp32 scales [2]")
-    lib, fn = _launcher_int8()
+    lib, (fn, _) = _launcher_int8()
     out = torch.empty(q8.shape, dtype=torch.bfloat16, device=q8.device)
     with torch.cuda.device(q8.device):
         stream = torch.cuda.current_stream(q8.device).cuda_stream
-        err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), scales.data_ptr(),
+        err = fn(q8.data_ptr(), k8.data_ptr(), vt8.data_ptr(), scales.data_ptr(),
                  out.data_ptr(), bh, sq, sk, dh, stream)
     check_launch(lib, err, "flash_attention_int8")
     flash_attention_int8.launches += 1
@@ -242,23 +323,22 @@ def flash_attention_int8(
     """Int8 attention core (the JAX package's ``int8_qkpv``) over q [BH, Sq,
     dh], k/v [BH, Sk, dh].
 
-    On CUDA tensors (bf16, contiguous, dh in {64, 128, 256}) it quantises
-    and launches the Hopper int8 kernel, or raises; on CPU tensors it
-    returns the plain version with the kernel's block_k. Returns [BH, Sq,
-    dh] in q's dtype."""
+    On CUDA tensors (bf16, contiguous, dh in {64, 128, 256}) it runs the two
+    quantise passes and the Hopper int8 kernel, three launches, or raises;
+    on CPU tensors it returns the plain version with the kernel's block_k.
+    Returns [BH, Sq, dh] in q's dtype."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_int8_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8 runs on cuda or cpu tensors, got {q.device}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"int8 flash kernel takes dh in {HEAD_DIMS}, got {q.shape[-1]}")
+    _check_int8_head_dim(q.shape[-1])
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"int8 flash kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"int8 flash kernel needs contiguous {name}")
-    return flash_attention_int8_core(*quantize_qkv_int8(q, k, v, scale))
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8 flash kernel needs contiguous, 16-byte aligned {name}")
+    return flash_attention_int8_core(*quantize_qkv_int8_fused(q, k, v, scale))
 
 
 flash_attention_int8.launches = 0

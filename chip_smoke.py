@@ -27,6 +27,16 @@ JAX or of the JAX package. Phases:
    masks) through ``TweedieMixPipeline.sample``, twice, with the kernel's
    launch count checked on each run, then one batch-4 and one batch-2 UNet
    call under torch.profiler (device time by kernel class, idle share);
+   then the CLI path: a full-width SDXL checkpoint of seeded random weights
+   in the diffusers layout (its parameter counts held to the published
+   checkpoint's), synthetic 49408-entry tokenizers and three concept deltas
+   (one in the compressed [u, v] form) are written under ``build/`` and
+   ``tweediemix_tpu_torch.cli.fusion_sampling.main`` runs from them, in
+   process, with the main path's sampling flags and the heuristic
+   segmenter, to one 1024² PNG: the PNG is decoded and checked, the bf16
+   kernel's launches counted, the modifier rows of both embedding tables
+   held to the deltas, and both towers in bf16 on the card held to fp32 on
+   the CPU on the seven prompts' ids; the directory is deleted;
 5. W8A8 main path: the same sample with ``quant="int8"`` at four seeds,
    static per-site activation scales calibrated on the card for these
    weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
@@ -683,6 +693,291 @@ def phase_main_path() -> dict:
     return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib, profile=profile)
 
 
+# parameters of the published SDXL checkpoint (stabilityai/stable-diffusion-
+# xl-base-1.0), per diffusers folder: the synthetic checkpoint must match them
+SDXL_PUBLISHED_PARAMS = {"unet": 2_567_463_684, "text_encoder": 123_060_480,
+                         "text_encoder_2": 694_659_840, "vae": 83_653_863}
+CLI_CONCEPTS = (("cat", "<cat1>"), ("dog", "<dog1>"), ("mountain", "<mountain1>"))
+CLI_DELTA_RANK = 16  # the third delta is stored as the compressed pair [u, v]
+# the CLI phase's sampling flags: the main path's FusionConfig
+CLI_FUSION = dict(n_timesteps=50, guidance_scale=0.8, t_cond=0.2, resampling_steps=10,
+                  jumping_steps=5, height=1024, width=1024, num_concepts=3)
+# both SDXL towers in bf16 on the card against the same towers in fp32 on
+# the CPU, relative to max |ctx| and max |pooled|
+TOWER_REL_TOL = 5e-2
+
+
+def write_sdxl_checkpoint(root, configs, seed, device) -> dict:
+    """A checkpoint directory in the diffusers layout with seeded random
+    weights (torch's default initialisation of the port's modules, whose
+    names are the diffusers names): ``unet/`` and ``text_encoder{,_2}/`` in
+    fp16, ``vae/`` in fp32 with a ``config.json``. ``configs`` maps each
+    folder to its (module class, config). Returns {folder: parameters}
+    and the bytes written."""
+    import torch
+
+    from tweediemix_tpu_torch.models.convert import checkpoint_state_dict, save_safetensors
+
+    torch.manual_seed(seed)
+    counts, written = {}, 0
+    for folder, (cls, cfg) in configs.items():
+        os.makedirs(os.path.join(root, folder))
+        dtype = torch.float32 if folder == "vae" else torch.float16
+        state = checkpoint_state_dict(cls(dataclasses.replace(cfg, dtype=dtype), device=device))
+        counts[folder] = sum(t.numel() for t in state.values())
+        if folder == "text_encoder":  # the buffer older HF checkpoints carry
+            state["text_model.embeddings.position_ids"] = torch.arange(cfg.max_positions)[None]
+        name = "diffusion_pytorch_model" if folder in ("unet", "vae") else "model"
+        written += save_safetensors(os.path.join(root, folder, f"{name}.safetensors"), state)
+        del state
+        if folder == "vae":
+            with open(os.path.join(root, folder, "config.json"), "w") as f:
+                json.dump({"_class_name": "AutoencoderKL", "scaling_factor": cfg.scaling_factor}, f)
+    return dict(params=counts, bytes=written)
+
+
+def write_tokenizers(root, vocab_size=49408) -> int:
+    """``tokenizer/`` and ``tokenizer_2/`` with a synthetic CLIP vocabulary
+    of ``vocab_size`` entries (the 256 bytes, each with ``</w>``, a few
+    merges, filler, then ``<|startoftext|>`` and ``<|endoftext|>`` last);
+    the second pads with "!", as SDXL's does. Returns the bytes written."""
+    from tweediemix_tpu_torch.utils.tokenizer import bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
+    merges = ["c a", "ca t</w>", "d o", "do g</w>", "o f</w>", "r u", "n n", "i n", "in g</w>"]
+    for m in merges:
+        vocab["".join(m.split())] = len(vocab)
+    while len(vocab) < vocab_size - 2:
+        vocab[f"<filler{len(vocab)}>"] = len(vocab)
+    vocab["<|startoftext|>"] = vocab_size - 2
+    vocab["<|endoftext|>"] = vocab_size - 1
+    written = 0
+    for folder, pad in (("tokenizer", "<|endoftext|>"), ("tokenizer_2", "!")):
+        os.makedirs(os.path.join(root, folder))
+        files = {"vocab.json": json.dumps(vocab), "merges.txt": "#version: 0.2\n" + "\n".join(merges),
+                 "tokenizer_config.json": json.dumps({"pad_token": pad, "model_max_length": 77})}
+        for name, text in files.items():
+            with open(os.path.join(root, folder, name), "w", encoding="utf-8") as f:
+                written += f.write(text)
+    return written
+
+
+def write_concept_deltas(root, unet_shapes, dims, seed, device) -> list:
+    """One reference ``delta-*.bin`` per concept of ``CLI_CONCEPTS``: the K/V
+    of every cross-attention (``unet_shapes``: {name: [out, in]}) and a
+    modifier embedding per tower (``dims``), seeded; the last delta holds
+    its K/V as the compressed pair [u, v]. Returns the paths."""
+    import torch
+
+    from tweediemix_tpu_torch.concepts.delta import is_cross_kv, save_reference_delta
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device=device)).cpu()
+
+    paths = []
+    for i, (concept, token) in enumerate(CLI_CONCEPTS):
+        unet = {}
+        for name in filter(is_cross_kv, unet_shapes):
+            out, inn = unet_shapes[name]
+            if i == len(CLI_CONCEPTS) - 1:
+                unet[name] = (randn(out, CLI_DELTA_RANK, std=CLI_DELTA_RANK**-0.5),
+                              randn(CLI_DELTA_RANK, inn, std=(3 * inn) ** -0.5))
+            else:
+                unet[name] = randn(out, inn, std=(3 * inn) ** -0.5)
+        path = os.path.join(root, f"delta-{concept}.bin")
+        save_reference_delta(path, unet, {token: randn(dims[0])}, {token: randn(dims[1])})
+        paths.append(path)
+    return paths
+
+
+def read_png(path):
+    """An 8-bit RGB PNG whose rows all use filter 0 (as ``save_image``
+    writes) → (IHDR fields, pixels [H, W, 3] uint8). Checks the CRCs."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, chunks = 8, []
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            fail(f"{path}: bad CRC in {tag!r}")
+        chunks.append((tag, body))
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", chunks[0][1])
+    ihdr = dict(width=w, height=h, bit_depth=depth, color_type=color, interlace=interlace)
+    raw = zlib.decompress(b"".join(body for tag, body in chunks if tag == b"IDAT"))
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * 3)
+    if rows[:, 0].any():
+        fail(f"{path}: a row uses a PNG filter other than 0")
+    return ihdr, rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_cli() -> dict:
+    """The port's CLI from a full-width SDXL checkpoint directory and three
+    concept deltas to one 1024² PNG (the main path's FusionConfig, masks
+    from the heuristic segmenter at the boundary step), then its checks."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tweediemix_tpu_torch.cli import fusion_sampling
+    from tweediemix_tpu_torch.concepts.delta import load_reference_delta
+    from tweediemix_tpu_torch.fusion.pipeline import insert_modifier
+    from tweediemix_tpu_torch.fusion.sampler import FusionConfig
+    from tweediemix_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, DualTextEncoder
+    from tweediemix_tpu_torch.models.convert import checkpoint_shapes, load_clip_text_model
+    from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
+    from tweediemix_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+
+    c1, c2 = CLIPTextConfig.sdxl_text_encoder(), CLIPTextConfig.sdxl_text_encoder_2()
+    configs = {"unet": (UNet2DConditionModel, UNetConfig.sdxl()),
+               "text_encoder": (CLIPTextModel, c1), "text_encoder_2": (CLIPTextModel, c2),
+               "vae": (AutoencoderKL, VAEConfig.sdxl())}
+    prompt = "photo of a cat running+photo of a dog running+mountain background"
+    prompt_orig = "photo of a cat and a dog running"
+    fcfg = FusionConfig(**CLI_FUSION)
+    expected = expected_flash_launches(UNetConfig.sdxl(concept_slots=4, dtype=torch.bfloat16), fcfg)
+    if expected != 5250:
+        fail(f"expected 5250 flash launches on the CLI path, the config gives {expected}")
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_sdxl_", dir=os.path.join(REPO, "build"))
+    build_pipeline = fusion_sampling.build_pipeline
+    try:
+        t0 = time.perf_counter()
+        ckpt = write_sdxl_checkpoint(root, configs, seed=0, device="cuda")
+        if ckpt["params"] != SDXL_PUBLISHED_PARAMS:
+            fail(f"checkpoint parameters {ckpt['params']} differ from SDXL's {SDXL_PUBLISHED_PARAMS}")
+        written = ckpt["bytes"] + write_tokenizers(root)
+        unet_shapes = checkpoint_shapes(UNet2DConditionModel(UNetConfig.sdxl(), device="meta"))
+        deltas = write_concept_deltas(root, unet_shapes, (c1.hidden_size, c2.hidden_size),
+                                      seed=1, device="cuda")
+        written += sum(os.path.getsize(p) for p in deltas)
+        write_s = time.perf_counter() - t0
+        log(f"cli: wrote {written / 1e9:.3f} GB in {write_s:.1f} s: {json.dumps(ckpt['params'])}")
+        torch.cuda.empty_cache()
+
+        out = os.path.join(root, "out")
+        argv = ["--model_dir", root, "--personal_checkpoint", "+".join(deltas), "--mode", "cd",
+                "--prompt", prompt, "--prompt_orig", prompt_orig,
+                "--concepts", "+".join(c for c, _ in CLI_CONCEPTS),
+                "--modifier_token", "+".join(t for _, t in CLI_CONCEPTS),
+                "--seg_concepts", "a cat+a dog", "--seed", "0", "--output_path", out,
+                "--resolution_h", str(fcfg.height), "--resolution_w", str(fcfg.width)]
+        for flag in ("n_timesteps", "t_cond", "resampling_steps", "jumping_steps", "guidance_scale"):
+            argv += [f"--{flag}", str(getattr(fcfg, flag))]
+        kept = {}
+
+        def keep_pipeline(opt, device="cuda", timings=None):
+            kept["pipe"] = build_pipeline(opt, device=device, timings=timings)
+            return kept["pipe"]
+
+        fusion_sampling.build_pipeline = keep_pipeline
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = fusion_sampling.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+        fusion_sampling.build_pipeline = build_pipeline
+        log(stdout.getvalue().strip())
+        if rc != 0:
+            fail(f"the CLI returned {rc}")
+        timings = json.loads(stdout.getvalue().split("timings: ", 1)[1].splitlines()[0])
+        if launches != expected:
+            fail(f"flash_attention launched {launches} times on the CLI path, expected {expected}")
+
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        if pngs != [f"{prompt_orig}_0.png"]:
+            fail(f"the CLI wrote {pngs}, expected one PNG")
+        png_bytes = os.path.getsize(os.path.join(out, pngs[0]))
+        ihdr, pixels = read_png(os.path.join(out, pngs[0]))
+        if ihdr != dict(width=fcfg.width, height=fcfg.height, bit_depth=8, color_type=2, interlace=0):
+            fail(f"PNG header {ihdr}, expected {fcfg.width}x{fcfg.height} 8-bit RGB")
+        if pixels.min() == pixels.max():
+            fail("every pixel of the PNG is equal")
+
+        pipe = kept["pipe"]
+        refs = [load_reference_delta(p) for p in deltas]
+        token_ids = []
+        for tok, model, coll in ((pipe.tokenizer_1, pipe.text.model1, "modifier_token"),
+                                 (pipe.tokenizer_2, pipe.text.model2, "modifier_token_2")):
+            table = model.text_model.embeddings.token_embedding.weight
+            ids = [tok.convert_tokens_to_ids(t) for _, t in CLI_CONCEPTS]
+            want_ids = [c1.vocab_size + i for i in range(len(CLI_CONCEPTS))]  # 49408-49410
+            if ids != want_ids or table.shape[0] != want_ids[-1] + 1:
+                fail(f"modifier ids {ids}, table rows {table.shape[0]}: expected {want_ids} "
+                     f"of {want_ids[-1] + 1}")
+            for tid, ref in zip(ids, refs):
+                want = next(iter(ref[coll].values())).to(table.dtype)
+                if not torch.equal(table[tid].cpu(), want):
+                    fail(f"{coll} row {tid} differs from its delta's vector")
+            token_ids.append(ids)
+
+        # the seven prompts prepare_text_embeds encodes, through both towers
+        # in bf16 on the card and in fp32 on the CPU (plain ops, no TF32)
+        per_concept = [insert_modifier(p, c, t) for p, (c, t) in zip(prompt.split("+"), CLI_CONCEPTS)]
+        prompts = ([fusion_sampling.build_parser().get_default("negative_prompt"), prompt_orig]
+                   + prompt.split("+")[:2] + per_concept)
+        ids1, ids2 = pipe.tokenizer_1(prompts), pipe.tokenizer_2(prompts)
+        if token_ids[0][0] not in ids1[4] or token_ids[1][2] not in ids2[6]:
+            fail("the modifier tokens are missing from the encoded prompts")
+        t0 = time.perf_counter()
+        ctx, pooled = pipe.text.encode_ids(ids1, ids2)
+        torch.cuda.synchronize()
+        towers_ms = (time.perf_counter() - t0) * 1e3
+        cpu_text = DualTextEncoder(load_clip_text_model(os.path.join(root, "text_encoder"), c1, "cpu"),
+                                   load_clip_text_model(os.path.join(root, "text_encoder_2"), c2, "cpu"))
+        cpu_text.add_modifier_tokens(
+            token_ids[0], [next(iter(r["modifier_token"].values())) for r in refs],
+            token_ids[1], [next(iter(r["modifier_token_2"].values())) for r in refs])
+        ctx_ref, pooled_ref = cpu_text.encode_ids(ids1, ids2)
+        ctx_err = ((ctx.float().cpu() - ctx_ref).abs().max() / ctx_ref.abs().max()).item()
+        pooled_err = ((pooled.float().cpu() - pooled_ref).abs().max() / pooled_ref.abs().max()).item()
+        if not (torch.isfinite(ctx).all() and torch.isfinite(pooled).all()):
+            fail("non-finite text embeddings")
+        if (tuple(ctx.shape) != (7, 77, c1.hidden_size + c2.hidden_size)
+                or tuple(pooled.shape) != (7, c2.projection_dim)):
+            fail(f"text embeddings {tuple(ctx.shape)} / {tuple(pooled.shape)}")
+        if ctx_err > TOWER_REL_TOL or pooled_err > TOWER_REL_TOL:
+            fail(f"towers on the card vs fp32 on the CPU: ctx {ctx_err:.3e}, pooled "
+                 f"{pooled_err:.3e} (limit {TOWER_REL_TOL})")
+        stats = dict(
+            gpu=gpu_name_and_power(), bytes_written=written, write_s=write_s,
+            load_s=timings["load_s"], build_s=timings["build_s"], encode_s=timings["encode_s"],
+            s_per_image=timings["sample_s"], phases=timings["phases"], cli_wall_s=wall,
+            max_memory_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+            expected_launches=expected, png_bytes=png_bytes, pixel_mean=float(pixels.mean()),
+            towers_ms=towers_ms, ctx_rel_err=ctx_err, pooled_rel_err=pooled_err,
+            ctx_absmax=ctx_ref.abs().max().item(), pooled_absmax=pooled_ref.abs().max().item(),
+        )
+        log(f"cli path: {json.dumps(stats)}")
+        return stats
+    finally:
+        fusion_sampling.build_pipeline = build_pipeline
+        shutil.rmtree(root)
+
+
 def phase_w8a8_main_path() -> dict:
     """The main path in W8A8 at four seeds: int8 transformer matmuls with
     static per-site scales calibrated on the card, the int8 attention core."""
@@ -1144,6 +1439,8 @@ def main() -> None:
     reference_video = phase_reference_video()
     main_path = phase_main_path()
     torch.cuda.empty_cache()
+    cli = phase_cli()
+    torch.cuda.empty_cache()
     w8a8 = phase_w8a8_main_path()
     torch.cuda.empty_cache()
     video = phase_video_main_path()
@@ -1160,7 +1457,8 @@ def main() -> None:
     kernels = [
         entry("flash_attention", "tweediemix_tpu_torch/csrc/flash_attention.cu",
               "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
-              kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"]),
+              kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"],
+              cli_launches=cli["launches"]),
         entry("flash_attention_int8", "tweediemix_tpu_torch/csrc/flash_attention_int8.cu",
               "tweediemix_tpu/ops/flash_attention.py:113", w8a8["runs"][-1]["int8_launches"],
               int8_rows, wrapper_ms=int8_rows[0]["wrapper_ms"],
@@ -1175,7 +1473,8 @@ def main() -> None:
               "tweediemix_tpu/ops/short_attention.py:51", video["runs"][-1]["launches"]["short"],
               short_rows),
     ]
-    log(json.dumps(dict(main_path=main_path, reference_w8a8=reference_w8a8, w8a8_main_path=w8a8,
+    log(json.dumps(dict(main_path=main_path, cli_path=cli, reference_w8a8=reference_w8a8,
+                        w8a8_main_path=w8a8,
                         reference_video=reference_video, video_path=video)))
     log(json.dumps(dict(kernels=kernels)))
     log(gpu_name_and_power())

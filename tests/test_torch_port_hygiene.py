@@ -1,6 +1,7 @@
 """The torch port stands alone: it never loads JAX or the JAX package, and
 its entry points never fall back to the CPU when CUDA was asked for."""
 
+import ast
 import os
 import pkgutil
 import re
@@ -30,15 +31,17 @@ def _port_sources():
 
 def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
-    assert "tweediemix_tpu_torch.fusion.pipeline" in modules
-    assert "tweediemix_tpu_torch.video.pipeline" in modules
+    for name in ("fusion.pipeline", "video.pipeline", "utils.tokenizer", "models.clip",
+                 "concepts.delta", "segmentation", "cli.fusion_sampling"):
+        assert f"tweediemix_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))\n"
-        "             or m == 'tweediemix_tpu' or m.startswith('tweediemix_tpu.'))\n"
+        "             or m == 'tweediemix_tpu' or m.startswith('tweediemix_tpu.')\n"
+        "             or m.split('.')[0] in ('transformers', 'safetensors', 'PIL'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -55,6 +58,40 @@ def test_port_sources_do_not_name_jax_or_the_jax_package():
         with open(path, encoding="utf-8") as f:
             for m in pattern.finditer(f.read()):
                 offenders.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_port_imports_no_transformers_or_safetensors_and_pil_only_to_read_masks():
+    """The GPU machine has neither transformers nor safetensors and does not
+    promise PIL: the port imports the first two nowhere, and PIL only inside
+    the functions that read or write image files other than PNG: the fusion
+    CLI's --mask_dir loader (JPG) and the video path's GIF writer."""
+    offenders = []
+    for path in _port_sources():
+        if not path.endswith(".py"):
+            continue
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        scopes = {}
+        for node in ast.walk(tree):
+            for child in ast.iter_child_nodes(node):
+                scopes[child] = node if isinstance(node, ast.FunctionDef) else scopes.get(node)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                where = f"{os.path.relpath(path, REPO)}:{node.lineno} {name}"
+                if top in ("transformers", "safetensors"):
+                    offenders.append(where)
+                elif top == "PIL":
+                    scope = scopes.get(node)
+                    if scope is None or scope.name not in ("load_fg_masks_from_dir", "export_gif"):
+                        offenders.append(where)
     assert not offenders, offenders
 
 
@@ -89,6 +126,13 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
         I2VPipeline.from_random_weights(UNet3DConfig.tiny(), VAEConfig.tiny(), vcfg)
     with pytest.raises(RuntimeError, match="cuda"):
         I2VPipeline(vcfg, UNet3DConditionModel(UNet3DConfig.tiny(), device="cpu"), vae)
+    from tweediemix_tpu_torch.cli.fusion_sampling import main
+    from tweediemix_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        CLIPTextModel(CLIPTextConfig.tiny())
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--model_preset", "tiny", "--concepts", "a+b", "--modifier_token", "<a>+<b>"])
 
 
 def test_package_exports_version_and_ddim_table():

@@ -1,11 +1,23 @@
-"""Multi-concept fusion pipeline: embeddings → sampler → VAE decode
-(counterpart of the sampling half of ``tweediemix_tpu/fusion/pipeline.py``).
+"""Multi-concept fusion pipeline: prompts → embeddings → sampler → VAE
+decode (counterpart of ``tweediemix_tpu/fusion/pipeline.py``).
 
-The pipeline is built from a UNet and a VAE that already hold their weights
-(random ones from ``from_random_weights``, or converted from the JAX
-package's parameter trees by ``models.convert``) and samples from
-precomputed text embeddings. Prompt encoding and concept-checkpoint loading
-come with the text-encoder slice.
+The prompt contract of the reference's sample scripts:
+
+* ``prompt``: ``+``-separated per-concept prompts, background LAST;
+* ``prompt_orig``: the joint multi-concept prompt;
+* ``concepts`` / ``modifier_token``: ``+``-separated, in the same order;
+  each concept prompt gets its modifier token inserted just before the
+  concept word;
+* the resampling prologue's single-concept prompts are the RAW per-concept
+  prompts of the foreground concepts (without modifier tokens);
+* per-concept checkpoints supply modifier-token embeddings for both text
+  encoders and Custom-Diffusion K/V (or LoRA) deltas.
+
+``from_concept_checkpoints`` builds the UNet once with its concept slots and
+fills it from the base checkpoint and the deltas (``models/convert.py``);
+the pipeline also runs from a UNet and a VAE that already hold their
+weights (``from_random_weights``, or converted JAX trees) and precomputed
+text embeddings.
 
 Numerics: the reference decodes in fp32. cuDNN would run fp32 convolutions
 in TF32 by default, so the pipeline turns TF32 off for matmuls
@@ -15,14 +27,21 @@ in TF32 by default, so the pipeline turns TF32 off for matmuls
 
 from __future__ import annotations
 
+import dataclasses
+import struct
 import time
-from typing import Optional
+import warnings
+import zlib
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from tweediemix_tpu_torch.concepts.delta import cd_delta_from_reference, lora_delta_from_reference
 from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.fusion.sampler import FusionConfig, FusionSampler, TextEmbeds
+from tweediemix_tpu_torch.models.clip import DualTextEncoder
+from tweediemix_tpu_torch.models.convert import load_unet
 from tweediemix_tpu_torch.models.unet2d import (
     UNet2DConditionModel,
     UNetConfig,
@@ -37,6 +56,22 @@ from tweediemix_tpu_torch.models.vae import (
 from tweediemix_tpu_torch.schedulers.ddim import DDIMTable
 
 
+def stack_text_embeds(embeds_list: Sequence[TextEmbeds]) -> TextEmbeds:
+    """Stack S per-seed TextEmbeds into one (each leaf gains a per-seed axis
+    at position 1), so seed row s of a batched trajectory samples prompt
+    set s. Pass with ``num_seeds == S``."""
+    return TextEmbeds(*(torch.stack(parts, dim=1) for parts in zip(*embeds_list)))
+
+
+def insert_modifier(prompt: str, concept: str, modifier: str) -> str:
+    """``"photo of a cat running"`` + cat/<cat1> → ``"photo of a <cat1> cat
+    running"``; without the concept word the modifier goes first."""
+    idx = prompt.find(concept)
+    if idx < 0:
+        return f"{modifier} {prompt}"
+    return prompt[:idx] + modifier + " " + prompt[idx:]
+
+
 class TweedieMixPipeline:
     def __init__(
         self,
@@ -46,12 +81,21 @@ class TweedieMixPipeline:
         table: Optional[DDIMTable] = None,
         segment_fn=None,
         device="cuda",
+        text: Optional[DualTextEncoder] = None,
+        tokenizer_1=None,
+        tokenizer_2=None,
     ):
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.unet = unet.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
+        self.text = text
+        if text is not None:
+            text.model1.to(self.device)
+            text.model2.to(self.device)
+        self.tokenizer_1 = tokenizer_1
+        self.tokenizer_2 = tokenizer_2
         self.fusion_config = fusion_config
         self.table = table or DDIMTable.create(n_steps=fusion_config.n_timesteps)
         self.sampler = FusionSampler(
@@ -84,6 +128,111 @@ class TweedieMixPipeline:
         unet = UNet2DConditionModel(unet_config, device=device)
         vae = AutoencoderKL(vae_config, device=device)
         return cls(unet, vae, fusion_config, device=device)
+
+    @classmethod
+    def from_concept_checkpoints(
+        cls,
+        base_unet,
+        checkpoints: Sequence[dict],
+        modifier_tokens: Sequence[str],
+        unet_config: UNetConfig,
+        vae: AutoencoderKL,
+        text: DualTextEncoder,
+        tokenizer_1,
+        tokenizer_2,
+        fusion_config: FusionConfig,
+        mode: str = "cd",
+        segment_fn=None,
+        device="cuda",
+    ) -> "TweedieMixPipeline":
+        """Wire N loaded reference deltas (``concepts.delta.load_reference_delta``)
+        into a UNet with N+1 concept slots and into both text towers.
+
+        ``base_unet`` is the base UNet checkpoint: a diffusers ``unet/``
+        directory, a ``CheckpointDir`` or checkpoint-named tensors. The UNet
+        is built once, with ``concept_slots`` (``mode="cd"``: stacked
+        cross-attention K/V) or ``lora_slots`` (``mode="lora"``) = N+1, and
+        filled from ``base_unet`` and the deltas. Text-tower state dicts of
+        ``--train_text_encoder`` checkpoints are loaded first (the last one
+        wins, with a warning when there are several, as the reference's
+        sequential loads do); then each modifier token is added to both
+        tokenizers and its rows to both embedding tables."""
+        device = resolve_device(device)
+        n = len(checkpoints)
+        te_states = [st for st in checkpoints if "text_encoder" in st]
+        if te_states:
+            if len(te_states) > 1:
+                warnings.warn(
+                    f"{len(te_states)} concept checkpoints carry full text-encoder weights; "
+                    "applying the last (the reference's sequential load_state_dict behavior)")
+            text.load_tower_state(te_states[-1].get("text_encoder"),
+                                  te_states[-1].get("text_encoder_2"))
+        ids1, ids2, rows1, rows2 = [], [], [], []
+        for tok, st in zip(modifier_tokens, checkpoints):
+            if not st.get("modifier_token"):
+                continue
+            tokenizer_1.add_tokens(tok)
+            tokenizer_2.add_tokens(tok)
+            ids1.append(tokenizer_1.convert_tokens_to_ids(tok))
+            ids2.append(tokenizer_2.convert_tokens_to_ids(tok))
+            # a checkpoint stores {its own token name: embedding}
+            rows1.append(next(iter(st["modifier_token"].values())))
+            rows2.append(next(iter(st["modifier_token_2"].values())))
+        if ids1:
+            text.add_modifier_tokens(ids1, rows1, ids2, rows2)
+
+        if mode == "cd":
+            unet = load_unet(base_unet, dataclasses.replace(unet_config, concept_slots=n + 1),
+                             device, concept_kvs=[cd_delta_from_reference(st) for st in checkpoints])
+        elif mode == "lora":
+            unet = load_unet(base_unet, dataclasses.replace(unet_config, lora_slots=n + 1),
+                             device, concept_loras=[lora_delta_from_reference(st) for st in checkpoints])
+        else:
+            raise ValueError(f"mode must be 'cd' or 'lora', got {mode!r}")
+        return cls(unet, vae, fusion_config, segment_fn=segment_fn, device=device, text=text,
+                   tokenizer_1=tokenizer_1, tokenizer_2=tokenizer_2)
+
+    # -- text ------------------------------------------------------------------
+
+    def encode_prompts(self, prompts: List[str]):
+        """Prompts → (ctx [B, 77, 2048], pooled [B, 1280]) on the towers' device."""
+        return self.text.encode_ids(self.tokenizer_1(prompts), self.tokenizer_2(prompts))
+
+    def prepare_text_embeds(self, prompt: str, prompt_orig: str, concepts: str,
+                            modifier_token: str, negative_prompt: str = "") -> TextEmbeds:
+        """The sample scripts' ``+``-separated contract (module docstring)."""
+        prompt_sep = prompt.split("+")
+        concept_list = concepts.split("+")
+        modifiers = modifier_token.split("+")
+        n = len(concept_list)
+        if len(prompt_sep) != n or len(modifiers) != n:
+            raise ValueError(
+                f"--prompt ({len(prompt_sep)} rows), --concepts ({n}) and "
+                f"--modifier_token ({len(modifiers)}) must all have the same "
+                "number of '+'-separated entries (background last)"
+            )
+        if n != self.fusion_config.num_concepts:
+            raise ValueError(f"{n} concepts for a pipeline built for "
+                             f"{self.fusion_config.num_concepts}")
+        multi = prompt_orig.split("+")[0]
+        per_concept = [insert_modifier(prompt_sep[i], concept_list[i], modifiers[i])
+                       for i in range(n)]
+        singles = prompt_sep[: n - 1]
+
+        uncond_ctx, uncond_pooled = self.encode_prompts([negative_prompt])
+        multi_ctx, multi_pooled = self.encode_prompts([multi])
+        single_ctx, single_pooled = self.encode_prompts(singles)
+        concept_ctx, concept_pooled = self.encode_prompts(per_concept)
+        return TextEmbeds(
+            joint_ctx=torch.cat([uncond_ctx, multi_ctx]),
+            joint_pooled=torch.cat([uncond_pooled, multi_pooled]),
+            single_ctx=single_ctx,
+            single_pooled=single_pooled,
+            concept_ctx=torch.cat([uncond_ctx, concept_ctx]),
+            concept_pooled=torch.cat([uncond_pooled, concept_pooled]),
+        )
+
+    # -- sampling ----------------------------------------------------------------
 
     def _unet_fn(self, x, t, ctx, pooled, idx, cross_kv=None):
         cfg = self.fusion_config
@@ -121,9 +270,21 @@ class TweedieMixPipeline:
         return imgs
 
 
-def save_image(img: torch.Tensor, path: str):
-    """[1, H, W, 3] float [0, 1] → PNG."""
-    from PIL import Image
-
+def save_image(img: torch.Tensor, path: str) -> None:
+    """[1, H, W, 3] float [0, 1] → an 8-bit RGB PNG (written with zlib and
+    struct, so no imaging package is needed); values are truncated to
+    integers as ``uint8`` casts do."""
     arr = (img[0].float().cpu().numpy() * 255.0).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    h, w, _ = arr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))  # 8-bit RGB
+           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))  # filter 0 on every row
+           + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)

@@ -25,18 +25,37 @@ UNet and VAE hold (``model.init(...)["params"]``, as numpy arrays). The rules:
   ``fps_embedding.0``).
 
 A key the module lacks, a key the tree lacks, or a shape that differs
-raises.
+raises. A CLIP text tree goes through ``clip_torch_name`` to the HF names
+(``layers_0/q_proj`` → ``text_model.encoder.layers.0.self_attn.q_proj``).
+
+The second half of the module loads checkpoint *directories* in the
+diffusers/HF layout (``unet/``, ``vae/``, ``text_encoder/``, …), the
+counterparts of the JAX package's ``load_*_params``: their names are the
+port's already, but for the merged ``attn1.to_qkv`` (stacked from
+``to_q``/``to_k``/``to_v`` once, at load), the concept stacks and the int8
+forms. A module is built on the ``meta`` device, the file's names and
+shapes are checked against it (a missing key, an unexpected key or a wrong
+shape raises, before any weight is read), and only then is it given memory
+on its device and filled one tensor at a time, so no host copy of the whole
+model is made. ``.safetensors`` files are read by the port's own reader
+(an 8-byte little-endian header length, a JSON header, raw bytes);
+``.bin`` files go through ``torch.load(weights_only=True)``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Dict, Mapping, Tuple
+import struct
+from typing import Callable, Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from tweediemix_tpu_torch.concepts.delta import cd_stack, is_lora_factor, lora_stack
+from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.ops.quant import quantize_weight_int8, quantize_weight_int8_conv
 
 _BLOCK_PARTS = r"(resnets|attentions|temp_convs|temp_attentions|downsamplers|upsamplers)"
@@ -83,6 +102,29 @@ def torch_name(path: Tuple[str, ...]) -> str:
     return f"{name}.{leaf}" if name else leaf
 
 
+_CLIP_RENAMES = (
+    (re.compile(r"^layers_(\d+)\.(q_proj|k_proj|v_proj|out_proj)\."),
+     r"text_model.encoder.layers.\1.self_attn.\2."),
+    (re.compile(r"^layers_(\d+)\.(fc[12])\."), r"text_model.encoder.layers.\1.mlp.\2."),
+    (re.compile(r"^layers_(\d+)\.(layer_norm[12])\."), r"text_model.encoder.layers.\1.\2."),
+    (re.compile(r"^token_embedding\.embedding$"), "text_model.embeddings.token_embedding.weight"),
+    (re.compile(r"^position_embedding$"), "text_model.embeddings.position_embedding.weight"),
+    (re.compile(r"^final_layer_norm\."), "text_model.final_layer_norm."),
+)
+
+
+def clip_torch_name(path: Tuple[str, ...]) -> str:
+    """A CLIP text tree's path → the HF name the port's ``CLIPTextModel``
+    uses (``("layers_0", "q_proj", "kernel")`` →
+    ``text_model.encoder.layers.0.self_attn.q_proj.weight``)."""
+    *scope, leaf = path
+    leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    name = ".".join([*scope, leaf])
+    for pattern, repl in _CLIP_RENAMES:
+        name = pattern.sub(repl, name)
+    return name
+
+
 def torch_layout(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
     """Transpose a Flax leaf into torch's layout."""
     if path[-1] == "kernel":
@@ -127,32 +169,299 @@ def quantize_weights(sd: Dict[str, torch.Tensor], want: Mapping) -> None:
             del sd[f"{prefix}weight"]
 
 
-def convert_params(params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree (the JAX UNet's, video UNet's, VAE's or one block's) →
+def convert_params(params: Mapping, module: nn.Module,
+                   name_fn: Callable[[Tuple[str, ...]], str] = torch_name) -> Dict[str, torch.Tensor]:
+    """Flax parameter tree (the JAX UNet's, video UNet's, VAE's or one
+    block's; a CLIP tower's with ``name_fn=clip_torch_name``) →
     ``module``'s state_dict as CPU tensors (fp32, and int8 where quantised);
     raises listing every missing, unexpected or mis-shaped key."""
     sd = {}
     for path, arr in flatten_tree(params).items():
-        name = torch_name(path)
+        name = name_fn(path)
         if name in sd:
             raise ValueError(f"two parameters map to {name!r}")
         sd[name] = torch.tensor(np.asarray(torch_layout(path, arr), dtype=np.float32))
     want = module.state_dict()
     merge_self_attention_qkv(sd, want)
     quantize_weights(sd, want)
-    problems = [f"missing: {k} {tuple(want[k].shape)}" for k in sorted(set(want) - set(sd))]
-    problems += [f"unexpected: {k} {tuple(sd[k].shape)}" for k in sorted(set(sd) - set(want))]
-    problems += [
-        f"shape mismatch: {k} got {tuple(sd[k].shape)} want {tuple(want[k].shape)}"
-        for k in sorted(set(sd) & set(want)) if tuple(sd[k].shape) != tuple(want[k].shape)
-    ]
-    if problems:
-        raise ValueError(f"converted parameters do not fit {type(module).__name__} "
-                         f"({len(problems)} problems):\n  " + "\n  ".join(problems[:20]))
+    check_shapes({k: tuple(v.shape) for k, v in sd.items()},
+                 {k: tuple(v.shape) for k, v in want.items()},
+                 f"converted parameters do not fit {type(module).__name__}")
     return sd
 
 
-def load_params(module: nn.Module, params: Mapping) -> nn.Module:
+def check_shapes(got: Mapping[str, tuple], want: Mapping[str, tuple], what: str) -> None:
+    """Raise listing every missing, unexpected or mis-shaped key."""
+    problems = [f"missing: {k} {want[k]}" for k in sorted(set(want) - set(got))]
+    problems += [f"unexpected: {k} {got[k]}" for k in sorted(set(got) - set(want))]
+    problems += [f"shape mismatch: {k} got {got[k]} want {want[k]}"
+                 for k in sorted(set(got) & set(want)) if got[k] != want[k]]
+    if problems:
+        raise ValueError(f"{what} ({len(problems)} problems):\n  " + "\n  ".join(problems[:20]))
+
+
+def load_params(module: nn.Module, params: Mapping,
+                name_fn: Callable[[Tuple[str, ...]], str] = torch_name) -> nn.Module:
     """Load a JAX parameter tree into ``module`` (cast to its dtype)."""
-    module.load_state_dict(convert_params(params, module))
+    module.load_state_dict(convert_params(params, module, name_fn))
     return module
+
+
+# ---------------------------------------------------------------------------
+# checkpoint files and directories in the diffusers / HF layout
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors_header(path: str) -> Tuple[Dict[str, dict], int]:
+    """({name: {"dtype", "shape", "data_offsets"}}, offset of the data) of a
+    ``.safetensors`` file; the ``__metadata__`` entry is dropped."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    for name, entry in header.items():
+        dtype = _ST_DTYPES.get(entry["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has unsupported dtype {entry['dtype']}")
+        start, end = entry["data_offsets"]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - start != int(np.prod(entry["shape"], dtype=np.int64)) * itemsize:
+            raise ValueError(f"{path}: {name} holds {end - start} bytes for shape {entry['shape']}")
+    return header, 8 + n
+
+
+def _read_tensor(f, entry: dict, data_start: int) -> torch.Tensor:
+    start, end = entry["data_offsets"]
+    dtype = _ST_DTYPES[entry["dtype"]]
+    if end == start:
+        return torch.empty(entry["shape"], dtype=dtype)
+    buf = bytearray(end - start)
+    f.seek(data_start + start)
+    if f.readinto(buf) != len(buf):
+        raise ValueError(f"{f.name}: file ends inside its tensor data")
+    return torch.frombuffer(buf, dtype=dtype).reshape(entry["shape"])
+
+
+def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> int:
+    """Write ``tensors`` as one ``.safetensors`` file, one tensor at a time
+    (each is copied to the host on its own). Returns the bytes written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(blob) + offset
+
+
+class CheckpointDir(Mapping):
+    """The tensors of a checkpoint directory: its ``*.safetensors`` files
+    (preferred), read one tensor at a time on access, or else its ``*.bin``
+    files, loaded whole. ``shapes`` holds every tensor's shape."""
+
+    def __init__(self, path: str):
+        files = sorted(os.listdir(path))
+        st_files = [os.path.join(path, f) for f in files if f.endswith(".safetensors")]
+        bin_files = [os.path.join(path, f) for f in files if f.endswith(".bin")]
+        self.path = path
+        self._where: Dict[str, Tuple[str, dict, int]] = {}
+        self._loaded: Dict[str, torch.Tensor] = {}
+        if st_files:
+            for file in st_files:
+                header, data_start = read_safetensors_header(file)
+                for name, entry in header.items():
+                    self._where[name] = (file, entry, data_start)
+            self.shapes = {k: tuple(e["shape"]) for k, (_, e, _) in self._where.items()}
+        elif bin_files:
+            for file in bin_files:
+                self._loaded.update(torch.load(file, map_location="cpu", weights_only=True))
+            self.shapes = {k: tuple(v.shape) for k, v in self._loaded.items()}
+        else:
+            raise FileNotFoundError(f"no .safetensors or .bin files in {path}")
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        if name in self._loaded:
+            return self._loaded[name]
+        file, entry, data_start = self._where[name]
+        with open(file, "rb") as f:
+            return _read_tensor(f, entry, data_start)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.shapes)
+
+    def __len__(self) -> int:
+        return len(self.shapes)
+
+
+_QKV_PART = re.compile(r"^(.*\.attn1\.)to_([qkv])\.weight$")
+
+
+def checkpoint_shapes(module: nn.Module) -> Dict[str, tuple]:
+    """{checkpoint name: shape} of the tensors that fill ``module``: its
+    state dict with a merged ``to_qkv`` [3·inner, C] split into
+    ``to_q``/``to_k``/``to_v`` [inner, C], a concept stack ``to_k_stack``
+    [S, in, out] read as the base ``to_k.weight`` [out, in], an int8
+    ``weight_q`` as its float ``weight``, and neither the int8 scales nor
+    the LoRA factors (they come from elsewhere)."""
+    want = {}
+    for key, t in module.state_dict(keep_vars=True).items():
+        shape = tuple(t.shape)
+        if key.endswith(("to_qkv.weight", "to_qkv.weight_q")):
+            prefix = key[: key.rindex("to_qkv.")]
+            for p in "qkv":
+                want[f"{prefix}to_{p}.weight"] = (shape[0] // 3, shape[1])
+        elif key.endswith("_stack"):
+            want[key[: -len("_stack")] + ".weight"] = (shape[2], shape[1])
+        elif key.endswith("weight_q"):
+            want[key[: -len("_q")]] = shape
+        elif not key.endswith("weight_scale") and not is_lora_factor(key):
+            want[key] = shape
+    return want
+
+
+def checkpoint_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A float module's state dict under its checkpoint names: each merged
+    ``to_qkv`` split back into ``to_q``/``to_k``/``to_v`` (the inverse of
+    the load for a module without concept slots or int8 weights)."""
+    out = {}
+    for key, t in module.state_dict().items():
+        if key.endswith("weight_q") or key.endswith("_stack") or is_lora_factor(key):
+            raise ValueError(f"{key}: only a float module without concept slots has a checkpoint form")
+        if key.endswith("to_qkv.weight"):
+            prefix = key[: -len("to_qkv.weight")]
+            for p, part in zip("qkv", t.chunk(3, dim=0)):
+                out[f"{prefix}to_{p}.weight"] = part
+        else:
+            out[key] = t
+    return out
+
+
+@torch.no_grad()
+def load_checkpoint(module: nn.Module, source: Mapping[str, torch.Tensor], device,
+                    concept_kvs: Sequence[Mapping] = (), concept_loras: Sequence[Mapping] = (),
+                    ignore: Sequence[str] = ()) -> nn.Module:
+    """Fill ``module``, built on the ``meta`` device, from checkpoint-named
+    tensors (``CheckpointDir`` or a dict) and give it memory on ``device``.
+
+    The names and shapes are checked against ``checkpoint_shapes(module)``
+    first; names in ``ignore`` (buffers such as CLIP's ``position_ids``) are
+    skipped. Then each tensor is read, moved to ``device`` and written into
+    place: ``to_q``/``to_k``/``to_v`` into the merged ``to_qkv``, a
+    cross-attention K/V into its concept stack (with ``concept_kvs``), a
+    quantised weight as int8 and scales from its fp32 values. LoRA stacks
+    come from ``concept_loras``. Raises if any entry of the module is left
+    unfilled."""
+    shapes = getattr(source, "shapes", None) or {k: tuple(v.shape) for k, v in source.items()}
+    shapes = {k: tuple(v) for k, v in shapes.items() if k not in ignore}
+    check_shapes(shapes, checkpoint_shapes(module),
+                 f"checkpoint does not fit {type(module).__name__}")
+    device = resolve_device(device)
+    module.to_empty(device=device)
+    targets = module.state_dict(keep_vars=True)
+    merged = {k[: k.rindex("to_qkv.")] for k in targets if ".to_qkv." in k}
+    filled = set()
+
+    def put(key, value):
+        targets[key].copy_(value)
+        filled.add(key)
+
+    def put_weight(key, w):
+        prefix = key[: -len("weight")]
+        if prefix + "weight_q" in targets:
+            quantize = quantize_weight_int8 if w.ndim == 2 else quantize_weight_int8_conv
+            wq, scale = quantize(w.float())
+            put(prefix + "weight_q", wq)
+            put(prefix + "weight_scale", scale)
+            if key not in targets:
+                return
+        put(key, w)
+
+    qkv_parts: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name in shapes:
+        t = source[name].to(device)
+        stack_key = name[: -len(".weight")] + "_stack"
+        m = _QKV_PART.match(name)
+        if stack_key in targets:
+            put(stack_key, cd_stack(name, t, concept_kvs))
+        elif m and m.group(1) in merged:
+            parts = qkv_parts.setdefault(m.group(1), {})
+            parts[m.group(2)] = t
+            if len(parts) == 3:
+                put_weight(f"{m.group(1)}to_qkv.weight", torch.cat([parts[p] for p in "qkv"]))
+                del qkv_parts[m.group(1)]
+        else:
+            put_weight(name, t)
+    for key, t in targets.items():
+        if is_lora_factor(key):
+            put(key, lora_stack(key, t.shape[1:], concept_loras, device=t.device))
+    unfilled = sorted(set(targets) - filled)
+    if unfilled:
+        raise ValueError(f"{type(module).__name__}: {len(unfilled)} entries not filled "
+                         f"from the checkpoint: {unfilled[:10]}")
+    return module.eval()
+
+
+def load_unet(source, config, device="cuda", concept_kvs: Sequence[Mapping] = (),
+              concept_loras: Sequence[Mapping] = ()):
+    """A ``UNet2DConditionModel(config)`` on ``device`` from a diffusers
+    ``unet/`` directory (or checkpoint-named tensors), with the concept
+    K/V stacks or LoRA factor stacks that ``config``'s slots hold."""
+    from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel
+
+    if isinstance(source, (str, os.PathLike)):
+        source = CheckpointDir(source)
+    return load_checkpoint(UNet2DConditionModel(config, device="meta"), source, device,
+                           concept_kvs=concept_kvs, concept_loras=concept_loras)
+
+
+def vae_config_overrides(vae_dir: str) -> Dict:
+    """``scaling_factor`` and, where the checkpoint's ``config.json`` sets
+    both, ``latents_mean``/``latents_std``: keyword arguments for
+    ``VAEConfig``; empty without the file."""
+    path = os.path.join(vae_dir, "config.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        cfg = json.load(f)
+    out = {}
+    if cfg.get("scaling_factor") is not None:
+        out["scaling_factor"] = float(cfg["scaling_factor"])
+    if cfg.get("latents_mean") is not None and cfg.get("latents_std") is not None:
+        out["latents_mean"] = tuple(float(v) for v in cfg["latents_mean"])
+        out["latents_std"] = tuple(float(v) for v in cfg["latents_std"])
+    return out
+
+
+def load_vae(source, config, device="cuda"):
+    """An ``AutoencoderKL(config)`` on ``device`` from a diffusers ``vae/``
+    directory (or checkpoint-named tensors)."""
+    from tweediemix_tpu_torch.models.vae import AutoencoderKL
+
+    if isinstance(source, (str, os.PathLike)):
+        source = CheckpointDir(source)
+    return load_checkpoint(AutoencoderKL(config, device="meta"), source, device)
+
+
+def load_clip_text_model(source, config, device="cuda"):
+    """A ``CLIPTextModel(config)`` on ``device`` from an HF
+    ``text_encoder``/``text_encoder_2`` directory (or HF-named tensors);
+    the ``position_ids`` buffer older checkpoints carry is skipped."""
+    from tweediemix_tpu_torch.models.clip import CLIPTextModel
+
+    if isinstance(source, (str, os.PathLike)):
+        source = CheckpointDir(source)
+    return load_checkpoint(CLIPTextModel(config, device="meta"), source, device,
+                           ignore=("text_model.embeddings.position_ids",))

@@ -122,10 +122,15 @@ class _Int8Weight(nn.Module):
 
     def _apply(self, fn, recurse=True):
         # Module.to(dtype) casts floating buffers; the per-channel scales stay
-        # fp32 (only their device follows the module)
+        # fp32 (only their device follows the module). A module built on the
+        # meta device has no values to keep: to_empty gives it fp32 memory
+        # that the checkpoint loader fills.
         scale = self.weight_scale
         super()._apply(fn, recurse)
-        self.weight_scale = scale.to(self.weight_scale.device)
+        if scale.is_meta:
+            self.weight_scale = self.weight_scale.float()
+        else:
+            self.weight_scale = scale.to(self.weight_scale.device)
         return self
 
 

@@ -20,7 +20,8 @@ JAX or of the JAX package. Phases:
    through the kernel) against the same weights on the CPU (fp32, plain
    versions); with resampling, the card's distance from fp32 is held
    against the plain bf16 path's on the CPU; then small W8A8 UNets
-   ("int8" and "int8_conv", the int8 attention core on) the same way;
+   ("int8" and "int8_conv", the int8 attention core on) the same way; the
+   tiny SAM and OWL-ViT detector on the card against the CPU in fp32;
 4. main path: the SDXL multi-concept fusion sample at full width (UNet
    ``sdxl(concept_slots=4)`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps at 1024², N=3, t_cond 0.2, resampling 10, jumping 5, half
@@ -36,7 +37,17 @@ JAX or of the JAX package. Phases:
    segmenter, to one 1024² PNG: the PNG is decoded and checked, the bf16
    kernel's launches counted, the modifier rows of both embedding tables
    held to the deltas, and both towers in bf16 on the card held to fp32 on
-   the CPU on the seven prompts' ids; the directory is deleted;
+   the CPU on the seven prompts' ids; then text-guided segmentation from
+   the same directory (``phase_cli_segmentation``): a segment-anything
+   ViT-H ``.pth`` and an OWL-ViT base-patch32 directory of seeded random
+   weights are written, the CLI runs again with ``--sam_checkpoint`` and
+   ``--detector_dir`` (SAM and the detector at the boundary step) to one
+   PNG with its segmentation seconds, scores, mask areas, peak memory and
+   launches, ``tweediemix_tpu_torch.cli.segment.main`` writes a mask PNG
+   per concept from that PNG, and the fusion CLI reads them back through
+   ``--mask_dir`` for a 4-step sample; SAM's encoder, the detector and the
+   decoder are timed, and one global and one windowed ViT-H block are held
+   to fp32 on the CPU; the directory is deleted;
 5. W8A8 main path: the same sample with ``quant="int8"`` at four seeds,
    static per-site activation scales calibrated on the card for these
    weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
@@ -794,40 +805,11 @@ def write_concept_deltas(root, unet_shapes, dims, seed, device) -> list:
     return paths
 
 
-def read_png(path):
-    """An 8-bit RGB PNG whose rows all use filter 0 (as ``save_image``
-    writes) → (IHDR fields, pixels [H, W, 3] uint8). Checks the CRCs."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        fail(f"{path}: not a PNG")
-    pos, chunks = 8, []
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos : pos + 4])
-        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])
-        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
-            fail(f"{path}: bad CRC in {tag!r}")
-        chunks.append((tag, body))
-        pos += 12 + n
-    w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", chunks[0][1])
-    ihdr = dict(width=w, height=h, bit_depth=depth, color_type=color, interlace=interlace)
-    raw = zlib.decompress(b"".join(body for tag, body in chunks if tag == b"IDAT"))
-    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * 3)
-    if rows[:, 0].any():
-        fail(f"{path}: a row uses a PNG filter other than 0")
-    return ihdr, rows[:, 1:].reshape(h, w, 3)
-
-
 def phase_cli() -> dict:
     """The port's CLI from a full-width SDXL checkpoint directory and three
     concept deltas to one 1024² PNG (the main path's FusionConfig, masks
-    from the heuristic segmenter at the boundary step), then its checks."""
+    from the heuristic segmenter at the boundary step), then its checks;
+    then, from the same directory, ``phase_cli_segmentation``."""
     import contextlib
     import io
     import shutil
@@ -845,6 +827,7 @@ def phase_cli() -> dict:
     from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
     from tweediemix_tpu_torch.models.vae import AutoencoderKL, VAEConfig
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.utils.image import read_png
 
     c1, c2 = CLIPTextConfig.sdxl_text_encoder(), CLIPTextConfig.sdxl_text_encoder_2()
     configs = {"unet": (UNet2DConditionModel, UNetConfig.sdxl()),
@@ -912,6 +895,7 @@ def phase_cli() -> dict:
             fail(f"the CLI wrote {pngs}, expected one PNG")
         png_bytes = os.path.getsize(os.path.join(out, pngs[0]))
         ihdr, pixels = read_png(os.path.join(out, pngs[0]))
+        pixels = pixels.reshape(fcfg.height, fcfg.width, -1)
         if ihdr != dict(width=fcfg.width, height=fcfg.height, bit_depth=8, color_type=2, interlace=0):
             fail(f"PNG header {ihdr}, expected {fcfg.width}x{fcfg.height} 8-bit RGB")
         if pixels.min() == pixels.max():
@@ -972,10 +956,318 @@ def phase_cli() -> dict:
             ctx_absmax=ctx_ref.abs().max().item(), pooled_absmax=pooled_ref.abs().max().item(),
         )
         log(f"cli path: {json.dumps(stats)}")
+        del pipe, kept["pipe"], cpu_text, ctx, pooled
+        torch.cuda.empty_cache()
+        stats["segmentation"] = phase_cli_segmentation(root, argv, expected)
         return stats
     finally:
         fusion_sampling.build_pipeline = build_pipeline
         shutil.rmtree(root)
+
+
+# segment-anything's prompt-encoder tensors for point and mask prompts, which
+# the port skips (sam_vit_h holds them; mask_in_chans 16)
+SAM_PROMPT_EXTRAS = {
+    "prompt_encoder.point_embeddings.0.weight": (1, 256),
+    "prompt_encoder.point_embeddings.1.weight": (1, 256),
+    "prompt_encoder.not_a_point_embed.weight": (1, 256),
+    "prompt_encoder.mask_downscaling.0.weight": (4, 1, 2, 2), "prompt_encoder.mask_downscaling.0.bias": (4,),
+    "prompt_encoder.mask_downscaling.1.weight": (4,), "prompt_encoder.mask_downscaling.1.bias": (4,),
+    "prompt_encoder.mask_downscaling.3.weight": (16, 4, 2, 2), "prompt_encoder.mask_downscaling.3.bias": (16,),
+    "prompt_encoder.mask_downscaling.4.weight": (16,), "prompt_encoder.mask_downscaling.4.bias": (16,),
+    "prompt_encoder.mask_downscaling.6.weight": (256, 16, 1, 1), "prompt_encoder.mask_downscaling.6.bias": (256,),
+}
+# SAM and the detector on the card against the CPU, fp32: logits and block
+# outputs relative to their largest magnitude
+SEG_REL_TOL = 1e-4
+SEG_CONCEPTS = "a cat+a dog"
+# the --mask_dir sample: a short trajectory, the masks read from PNGs
+MASK_DIR_FUSION = dict(n_timesteps=4, t_cond=0.5, resampling_steps=0, jumping_steps=1)
+
+
+def sam_encoder_flops(cfg) -> dict:
+    """Multiply-adds × 2 of one SAM image-encoder call, by part (the
+    windowed blocks compute on the grid padded to whole windows)."""
+    c, g, win = cfg.encoder_dim, cfg.grid, cfg.window_size
+    padded = -(-g // win) * win
+    out = dict(global_blocks=0.0, window_blocks=0.0)
+    for i in range(cfg.encoder_layers):
+        if i in cfg.global_attn_indexes:
+            t, attn = g * g, 4 * (g * g) ** 2 * c + 2 * 2 * g * g * c * g
+            key = "global_blocks"
+        else:
+            t = padded * padded
+            attn = (padded // win) ** 2 * (4 * win**4 * c + 2 * 2 * win * win * c * win)
+            key = "window_blocks"
+        out[key] += 2 * t * c * 3 * c + 2 * t * c * c + attn + 2 * g * g * c * 8 * c
+    p = cfg.prompt_dim
+    out["embed_and_neck"] = (2 * g * g * 3 * cfg.patch_size**2 * c + 2 * g * g * c * p
+                             + 2 * g * g * p * p * 9)
+    out["total"] = sum(out.values())
+    return out
+
+
+def write_sam_checkpoint(path, seed, device) -> dict:
+    """A segment-anything ViT-H checkpoint of seeded random weights
+    (``lang_sam.seeded_init_``, the relative-position tables 0.02·N(0, 1)
+    so that they act) under upstream's names, the point- and mask-prompt
+    tensors included, written with ``torch.save`` as upstream ships it."""
+    import torch
+
+    from tweediemix_tpu_torch.segmentation.lang_sam import seeded_init_
+    from tweediemix_tpu_torch.segmentation.sam import SAM, SAMConfig
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sam = seeded_init_(SAM(SAMConfig.vit_h(), device=device), gen)
+    with torch.no_grad():
+        for name, t in sam.named_parameters():
+            if "rel_pos" in name:
+                t.copy_(0.02 * torch.randn(t.shape, generator=gen, device=device))
+    state = {k: v.cpu() for k, v in sam.state_dict().items()}
+    for k, shape in SAM_PROMPT_EXTRAS.items():
+        state[k] = (0.02 * torch.randn(shape, generator=gen, device=device)).cpu()
+    torch.save(state, path)
+    return dict(params=sum(t.numel() for t in state.values()),
+                port_params=sum(t.numel() for t in sam.state_dict().values()),
+                bytes=os.path.getsize(path))
+
+
+def write_owlvit_dir(root, seed, device) -> dict:
+    """An HF ``OwlViTForObjectDetection`` directory (base-patch32) of seeded
+    random weights: ``model.safetensors`` with the contrastive head and
+    position-id buffers, and a synthetic 49408-entry tokenizer under
+    ``tokenizer/``."""
+    import torch
+
+    from tweediemix_tpu_torch.models.convert import save_safetensors
+    from tweediemix_tpu_torch.segmentation.detector import DetectorConfig, TextBoxDetector
+    from tweediemix_tpu_torch.segmentation.lang_sam import seeded_init_
+
+    cfg = DetectorConfig.owlvit_base_patch32()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    det = seeded_init_(TextBoxDetector(cfg, device=device), gen)
+    state = dict(det.state_dict())
+    state["owlvit.logit_scale"] = torch.tensor(2.6592)
+    state["owlvit.visual_projection.weight"] = 0.02 * torch.randn(
+        (cfg.embed_dim, cfg.vision.hidden_size), generator=gen, device=device)
+    state["owlvit.text_model.embeddings.position_ids"] = torch.arange(cfg.text.max_positions)[None]
+    state["owlvit.vision_model.embeddings.position_ids"] = torch.arange(
+        cfg.vision.num_patches + 1)[None]
+    os.makedirs(root)
+    written = save_safetensors(os.path.join(root, "model.safetensors"), state)
+    written += write_tokenizers(root)
+    return dict(params=sum(t.numel() for k, t in state.items() if not k.endswith("position_ids")),
+                port_params=sum(t.numel() for t in det.state_dict().values()), bytes=written)
+
+
+def run_cli(main, argv):
+    """``main(argv, device="cuda")`` with its standard output captured:
+    (return code, output, wall seconds ending in a device synchronise)."""
+    import contextlib
+    import io
+
+    import torch
+
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(stdout.getvalue().strip())
+    return rc, stdout.getvalue(), wall
+
+
+def _flag(argv, name, value):
+    """``argv`` with ``--name``'s value replaced (appended where absent)."""
+    argv = list(argv)
+    if f"--{name}" in argv:
+        argv[argv.index(f"--{name}") + 1] = str(value)
+    else:
+        argv += [f"--{name}", str(value)]
+    return argv
+
+
+def _segment_files_and_mask_dir(root, argv, masks_dir, rc) -> dict:
+    """Checks the segment CLI's mask PNGs, then runs the fusion CLI's short
+    ``--mask_dir`` sample on them."""
+    from tweediemix_tpu_torch.cli import fusion_sampling
+    from tweediemix_tpu_torch.utils.image import read_png
+
+    if rc != 0:
+        fail(f"the segment CLI returned {rc}")
+    mask_areas = []
+    for name in SEG_CONCEPTS.split("+"):
+        header, mask = read_png(os.path.join(masks_dir, f"{name}.png"))
+        if (header["width"], header["height"], header["color_type"]) != (1024, 1024, 0):
+            fail(f"{name}.png: {header}")
+        if not set(mask.reshape(-1).tolist()) <= {0, 255}:
+            fail(f"{name}.png holds values other than 0 and 255")
+        mask_areas.append(float((mask > 0).mean()))
+    short = os.path.join(root, "out_mask_dir")
+    mask_argv = _flag(argv, "output_path", short) + ["--mask_dir", masks_dir]
+    for flag, value in MASK_DIR_FUSION.items():
+        mask_argv = _flag(mask_argv, flag, value)
+    rc, text, mask_wall = run_cli(fusion_sampling.main, mask_argv)
+    if rc != 0 or "segmentation: " in text:
+        fail(f"the --mask_dir run returned {rc} or segmented")
+    pngs = [f for f in os.listdir(short) if f.endswith(".png")]
+    if len(pngs) != 1 or read_png(os.path.join(short, pngs[0]))[0]["width"] != 1024:
+        fail(f"the --mask_dir run wrote {pngs}")
+    return dict(segment_cli_mask_areas=mask_areas, mask_dir_wall_s=mask_wall,
+                mask_dir_sample_s=json.loads(text.split("timings: ", 1)[1].splitlines()[0])["sample_s"])
+
+
+def phase_cli_segmentation(root, argv, expected) -> dict:
+    """Text-guided segmentation in the fusion CLI at full width, from the
+    SDXL directory of ``phase_cli`` (``argv``: its flags): a SAM ViT-H
+    checkpoint and an OWL-ViT base-patch32 directory of seeded random
+    weights are written under ``root``; the fusion CLI runs with
+    ``--sam_checkpoint``/``--detector_dir`` (the ``sam`` preset: SAM and the
+    detector at the boundary step) to one 1024² PNG; the segment CLI writes
+    a mask PNG per concept from that PNG; the fusion CLI reads them back
+    through ``--mask_dir`` for a short sample. Then SAM's encoder, the
+    detector and the decoder are timed on the card, and one global and one
+    windowed ViT-H block from the checkpoint are held to the CPU in fp32."""
+    import copy
+    import importlib.util
+
+    import torch
+
+    from tweediemix_tpu_torch.cli import fusion_sampling, segment
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.segmentation.lang_sam import LangSAM
+    from tweediemix_tpu_torch.utils.image import read_png
+
+    sam_path = os.path.join(root, "sam_vit_h.pth")
+    det_dir = os.path.join(root, "owlvit-base-patch32")
+    t0 = time.perf_counter()
+    sam_ckpt = write_sam_checkpoint(sam_path, seed=2, device="cuda")
+    det_ckpt = write_owlvit_dir(det_dir, seed=3, device="cuda")
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"segmentation: wrote SAM ViT-H {json.dumps(sam_ckpt)} and OWL-ViT {json.dumps(det_ckpt)} "
+        f"in {write_s:.1f} s")
+
+    # 1. the fusion CLI with real segmentation weights: the preset resolves to sam
+    out = os.path.join(root, "out_sam")
+    seg_argv = _flag(argv, "output_path", out) + ["--sam_checkpoint", sam_path, "--detector_dir", det_dir]
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    rc, text, wall = run_cli(fusion_sampling.main, seg_argv)
+    launches = flash_attention.launches
+    if rc != 0:
+        fail(f"the CLI with --sam_checkpoint/--detector_dir returned {rc}")
+    if launches != expected:
+        fail(f"flash_attention launched {launches} times on the CLI's sam path, expected {expected}")
+    timings = json.loads(text.split("timings: ", 1)[1].splitlines()[0])
+    seg = json.loads(text.split("segmentation: ", 1)[1].splitlines()[0])
+    if not timings.get("segment_s") or not timings.get("seg_load_s"):
+        fail(f"the sam path's timings lack segment_s/seg_load_s: {timings}")
+    if [c for c, _ in seg["top_scores"]] != SEG_CONCEPTS.split("+") or len(seg["mask_areas"]) != 2:
+        fail(f"segmentation line {seg}")
+    if not all(0.0 <= a <= 1.0 for a in seg["mask_areas"]):
+        fail(f"mask areas {seg['mask_areas']}")
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    if len(pngs) != 1:
+        fail(f"the sam path wrote {pngs}, expected one PNG")
+    image_png = os.path.join(out, pngs[0])
+    header, pixels = read_png(image_png)
+    if (header["width"], header["height"], header["color_type"]) != (1024, 1024, 2) or pixels.min() == pixels.max():
+        fail(f"the sam path's PNG: {header}, pixels {pixels.min()}..{pixels.max()}")
+    fusion = dict(cli_wall_s=wall, load_s=timings["load_s"], seg_load_s=timings["seg_load_s"],
+                  build_s=timings["build_s"], s_per_image=timings["sample_s"],
+                  segment_s=timings["segment_s"], phases=timings["phases"], launches=launches,
+                  max_memory_gib=torch.cuda.max_memory_allocated() / 2**30, **seg)
+    log(f"segmentation fusion cli: {json.dumps(fusion)}")
+
+    # 2. the segment CLI on that PNG, then --mask_dir reads its masks back,
+    # both with PIL made unimportable (the files are PNGs the port reads)
+    pil_installed = importlib.util.find_spec("PIL") is not None
+    saved_pil = {k: sys.modules.pop(k) for k in list(sys.modules) if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None
+    try:
+        masks_dir = os.path.join(root, "masks")
+        rc, _, seg_wall = run_cli(segment.main, [
+            "--input_path", image_png, "--text_condition", SEG_CONCEPTS, "--output_path", masks_dir,
+            "--seg_preset", "sam", "--sam_checkpoint", sam_path, "--detector_dir", det_dir])
+        files = _segment_files_and_mask_dir(root, argv, masks_dir, rc)
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved_pil)
+    files.update(segment_cli_wall_s=seg_wall, pil_installed=pil_installed, pil_blocked=True)
+    log(f"segmentation files: {json.dumps(files)}")
+
+    # 3. the stage's layers on the card, and two full-width blocks against the CPU
+    ls = LangSAM.from_pretrained(sam_path, det_dir, device="cuda")
+    sam, cfg = ls.sam, ls.sam.config
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    image = torch.rand((1024, 1024, 3), generator=gen, device="cuda")
+    pixels = torch.randn((1, 1024, 1024, 3), generator=gen, device="cuda")
+    det_pixels = torch.randn((1, 768, 768, 3), generator=gen, device="cuda")
+    ids = torch.tensor(ls.tokenizer(["a cat"]), device="cuda")
+    tokens = torch.randn((1, cfg.grid, cfg.grid, cfg.encoder_dim), generator=gen, device="cuda")
+    with torch.inference_mode():
+        feats = sam.encode_image(pixels)
+        boxes, _ = ls.detector(det_pixels, ids)
+        layers = dict(
+            sam_encoder_ms=cuda_ms(lambda: sam.encode_image(pixels), 3),
+            sam_decoder_8_boxes_ms=cuda_ms(lambda: sam.decode_boxes(feats, boxes), 5),
+            detector_ms=cuda_ms(lambda: ls.detector(det_pixels, ids), 5),
+            predict_ms=cuda_ms(lambda: ls.predict(image, "a cat"), 3),
+            global_block_ms=cuda_ms(lambda: sam.image_encoder.blocks[cfg.global_attn_indexes[0]](tokens), 3),
+            window_block_ms=cuda_ms(lambda: sam.image_encoder.blocks[0](tokens), 3),
+        )
+        flops = sam_encoder_flops(cfg)
+        layers["sam_encoder_tflops"] = flops["total"] / 1e12
+        layers["sam_encoder_tflop_per_s"] = flops["total"] / (layers["sam_encoder_ms"] * 1e-3) / 1e12
+        blocks = {}
+        x = torch.randn((1, cfg.grid, cfg.grid, cfg.encoder_dim), generator=gen, device="cuda")
+        for kind, idx in (("global", cfg.global_attn_indexes[0]), ("window", 0)):
+            block = sam.image_encoder.blocks[idx]
+            got = block(x).cpu()
+            want = copy.deepcopy(block).cpu()(x.cpu())
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            blocks[kind] = dict(block=idx, rel_err=err, absmax=want.abs().max().item())
+            if not torch.isfinite(got).all() or err > SEG_REL_TOL:
+                fail(f"ViT-H {kind} block {idx} on the card vs fp32 on the CPU: {err:.3e} "
+                     f"(limit {SEG_REL_TOL})")
+    layers["blocks_card_vs_cpu"] = blocks
+    layers["sam_encoder_flops_by_part"] = flops
+    log(f"segmentation layers: {json.dumps(layers)}")
+    del ls, sam, feats
+    torch.cuda.empty_cache()
+    return dict(gpu=gpu_name_and_power(), write_s=write_s, sam_checkpoint=sam_ckpt,
+                detector_checkpoint=det_ckpt, fusion=fusion, files=files, layers=layers)
+
+
+def phase_reference_segmentation() -> dict:
+    """The tiny SAM and detector (``LangSAM.random_init``, one seed) on the
+    card against the CPU, fp32: mask logits within ``SEG_REL_TOL`` of max
+    |logit|, boxes and scores within it, and the boolean masks equal but
+    for pixels whose CPU logit lies within that tolerance of 0."""
+    import torch
+
+    from tweediemix_tpu_torch.segmentation.lang_sam import LangSAM
+
+    card = LangSAM.random_init(torch.Generator().manual_seed(0), device="cuda")
+    cpu = LangSAM.random_init(torch.Generator().manual_seed(0), device="cpu")
+    image = torch.rand((96, 80, 3), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for text in SEG_CONCEPTS.split("+"):
+        lc, bc, sc = (t.cpu() for t in card.predict_logits(image, text))
+        l0, b0, s0 = cpu.predict_logits(image, text)
+        scale = l0.abs().max()
+        logit_err = ((lc - l0).abs().max() / scale).item()
+        box_err = (bc - b0).abs().max().item()
+        score_err = (sc - s0).abs().max().item()
+        flipped = ((lc > 0) != (l0 > 0)) & (l0.abs() > SEG_REL_TOL * scale)
+        out[text] = dict(logit_rel_err=logit_err, box_err=box_err, score_err=score_err,
+                         flipped_off_edge=int(flipped.sum()), logit_absmax=scale.item())
+        if max(logit_err, box_err, score_err) > SEG_REL_TOL or flipped.any():
+            fail(f"tiny SAM/detector on the card vs the CPU for {text!r}: {out[text]}")
+    log(f"reference segmentation: {json.dumps(out)}")
+    return out
 
 
 def phase_w8a8_main_path() -> dict:
@@ -1437,6 +1729,7 @@ def main() -> None:
     reference_w8a8 = phase_reference_w8a8()
     short_rows = phase_kernels_short()
     reference_video = phase_reference_video()
+    reference_segmentation = phase_reference_segmentation()
     main_path = phase_main_path()
     torch.cuda.empty_cache()
     cli = phase_cli()
@@ -1458,7 +1751,7 @@ def main() -> None:
         entry("flash_attention", "tweediemix_tpu_torch/csrc/flash_attention.cu",
               "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
               kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"],
-              cli_launches=cli["launches"]),
+              cli_launches=cli["launches"], cli_sam_launches=cli["segmentation"]["fusion"]["launches"]),
         entry("flash_attention_int8", "tweediemix_tpu_torch/csrc/flash_attention_int8.cu",
               "tweediemix_tpu/ops/flash_attention.py:113", w8a8["runs"][-1]["int8_launches"],
               int8_rows, wrapper_ms=int8_rows[0]["wrapper_ms"],
@@ -1474,6 +1767,7 @@ def main() -> None:
               short_rows),
     ]
     log(json.dumps(dict(main_path=main_path, cli_path=cli, reference_w8a8=reference_w8a8,
+                        reference_segmentation=reference_segmentation,
                         w8a8_main_path=w8a8,
                         reference_video=reference_video, video_path=video)))
     log(json.dumps(dict(kernels=kernels)))

@@ -251,7 +251,7 @@ def test_cli_tiny_end_to_end_with_mask_dir(tmp_path, capsys):
     captured = capsys.readouterr()
     assert "--device is accepted for reference-script compatibility" in captured.err
     timings = json.loads(captured.out.split("timings: ")[1])
-    assert set(timings) == {"load_s", "build_s", "encode_s", "sample_s", "phases"}
+    assert set(timings) == {"load_s", "seg_load_s", "build_s", "encode_s", "sample_s", "phases"}
 
 
 def test_cli_heuristic_segmentation_and_seed_sets(tmp_path, capsys):
@@ -277,8 +277,12 @@ def test_cli_heuristic_segmentation_and_seed_sets(tmp_path, capsys):
     (["--num_seeds", "3", "--prompt", PROMPT + "||" + PROMPT], ValueError, "must equal --num_seeds"),
     (["--mesh_devices", "2"], NotImplementedError, "ROADMAP item 16"),
     (["--profile", "prof"], NotImplementedError, "ROADMAP item 16"),
-    (["--seg_preset", "sam"], NotImplementedError, "ROADMAP item 13"),
-    (["--seg_preset", "sam-random"], NotImplementedError, "ROADMAP item 13"),
+    # the GroundingDINO detector is not ported: asked for, or sniffed from a
+    # single checkpoint file, it raises before any model loads
+    (["--seg_preset", "sam", "--sam_checkpoint", "sam.pth", "--detector_dir", "dino",
+      "--detector", "dino"], NotImplementedError, "ROADMAP item 13"),
+    (["--seg_preset", "sam", "--sam_checkpoint", "sam.pth", "--detector_dir", __file__],
+     NotImplementedError, "ROADMAP item 13"),
 ])
 def test_cli_error_contracts(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):

@@ -32,7 +32,8 @@ def _port_sources():
 def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     for name in ("fusion.pipeline", "video.pipeline", "utils.tokenizer", "models.clip",
-                 "concepts.delta", "segmentation", "cli.fusion_sampling"):
+                 "concepts.delta", "segmentation", "cli.fusion_sampling", "segmentation.sam",
+                 "segmentation.detector", "segmentation.lang_sam", "cli.segment", "utils.image"):
         assert f"tweediemix_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -41,7 +42,7 @@ def test_importing_every_port_module_loads_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))\n"
         "             or m == 'tweediemix_tpu' or m.startswith('tweediemix_tpu.')\n"
-        "             or m.split('.')[0] in ('transformers', 'safetensors', 'PIL'))\n"
+        "             or m.split('.')[0] in ('transformers', 'safetensors', 'PIL', 'cv2'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -62,10 +63,12 @@ def test_port_sources_do_not_name_jax_or_the_jax_package():
 
 
 def test_port_imports_no_transformers_or_safetensors_and_pil_only_to_read_masks():
-    """The GPU machine has neither transformers nor safetensors and does not
-    promise PIL: the port imports the first two nowhere, and PIL only inside
-    the functions that read or write image files other than PNG: the fusion
-    CLI's --mask_dir loader (JPG) and the video path's GIF writer."""
+    """The GPU machine has neither transformers, safetensors nor cv2 and
+    does not promise PIL: the port imports the first three nowhere, and PIL
+    only inside the functions that read or write image files other than
+    PNG: ``utils/image.py``'s reader of other formats (the fusion CLI's
+    --mask_dir JPGs, the segment CLI's input) and the video path's GIF
+    writer."""
     offenders = []
     for path in _port_sources():
         if not path.endswith(".py"):
@@ -86,11 +89,11 @@ def test_port_imports_no_transformers_or_safetensors_and_pil_only_to_read_masks(
             for name in names:
                 top = name.split(".")[0]
                 where = f"{os.path.relpath(path, REPO)}:{node.lineno} {name}"
-                if top in ("transformers", "safetensors"):
+                if top in ("transformers", "safetensors", "cv2"):
                     offenders.append(where)
                 elif top == "PIL":
                     scope = scopes.get(node)
-                    if scope is None or scope.name not in ("load_fg_masks_from_dir", "export_gif"):
+                    if scope is None or scope.name not in ("_read_with_pil", "export_gif"):
                         offenders.append(where)
     assert not offenders, offenders
 
@@ -133,6 +136,20 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
         CLIPTextModel(CLIPTextConfig.tiny())
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--model_preset", "tiny", "--concepts", "a+b", "--modifier_token", "<a>+<b>"])
+    from tweediemix_tpu_torch.cli import segment
+    from tweediemix_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionModel
+    from tweediemix_tpu_torch.segmentation import make_segment_fn
+    from tweediemix_tpu_torch.segmentation.detector import DetectorConfig, TextBoxDetector
+    from tweediemix_tpu_torch.segmentation.lang_sam import LangSAM
+    from tweediemix_tpu_torch.segmentation.sam import SAM, SAMConfig
+
+    for build in (lambda: SAM(SAMConfig.tiny()), lambda: TextBoxDetector(DetectorConfig.tiny()),
+                  lambda: CLIPVisionModel(CLIPVisionConfig.tiny()), LangSAM.random_init,
+                  lambda: make_segment_fn("a cat", "out", "sam-random"),
+                  lambda: segment.main(["--input_path", "x.png", "--text_condition", "a cat",
+                                        "--output_path", "out"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
 
 
 def test_package_exports_version_and_ddim_table():

@@ -13,14 +13,18 @@ concept last; ``--mode`` picks Custom-Diffusion or LoRA checkpoints
 (``--t_stop`` sets the LoRA fusion window). Weights come from
 ``--model_dir`` (a local SDXL checkpoint directory in the diffusers layout)
 or ``--model_preset tiny`` (seeded random small models for smoke runs).
-Masks come from ``--mask_dir`` (``<seg_concept>.jpg`` per concept) or from
-the in-process segmentation stage at the sampler's boundary step (only its
-weights-free ``heuristic`` preset is ported).
+Masks come from ``--mask_dir`` (``<seg_concept>.png`` per concept, as the
+port's ``cli/segment.py`` writes them; the JAX package's ``.jpg`` where PIL
+is installed) or from the in-process segmentation stage at the sampler's
+boundary step: SAM ViT-H and the OWL-ViT detector from
+``--sam_checkpoint``/``--detector_dir`` (the ``sam`` preset, chosen when
+both are given), ``sam-random`` or the weights-free ``heuristic``.
 
 It runs on the card; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU. ``--device`` and ``--seg_gpu`` are accepted for the reference's
 scripts and only warn. Not ported yet: ``--mesh_devices`` > 1 and
-``--profile`` (ROADMAP item 16), the ``sam`` presets (item 13).
+``--profile`` (ROADMAP item 16), the GroundingDINO detector
+(``--detector dino``, item 13).
 """
 
 from __future__ import annotations
@@ -68,13 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_preset", type=str, default=None, choices=[None, "tiny"],
                    help="seeded random small models for smoke runs (no weights needed)")
     p.add_argument("--mask_dir", type=str, default=None,
-                   help="directory with precomputed '<seg_concept>.jpg' masks")
+                   help="directory with precomputed '<seg_concept>.png' masks "
+                        "(or '.jpg' where PIL is installed)")
     p.add_argument("--seg_preset", type=str, default=None,
                    choices=[None, "heuristic", "sam-random", "sam"],
                    help="in-process segmentation stage when no --mask_dir "
                         "(default: 'sam' when --sam_checkpoint and "
-                        "--detector_dir are given, else 'heuristic'; only "
-                        "'heuristic' is ported)")
+                        "--detector_dir are given, else 'heuristic')")
     p.add_argument("--sam_checkpoint", type=str, default=None,
                    help="segment-anything ViT-H checkpoint for --seg_preset sam")
     p.add_argument("--detector_dir", type=str, default=None,
@@ -83,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="detector score threshold")
     p.add_argument("--detector", type=str, default="auto",
                    choices=["auto", "owlvit", "dino"],
-                   help="box-detector backend for the sam preset")
+                   help="box-detector backend for the sam preset (OWL-ViT; "
+                        "GroundingDINO is not ported and raises)")
     p.add_argument("--profile", type=str, default=None,
                    help="directory for a profiler trace + phase timings (not ported yet)")
     p.add_argument("--num_seeds", type=int, default=1,
@@ -165,23 +170,35 @@ def _load_model_dir(opt, device):
 
 
 def load_fg_masks_from_dir(mask_dir, seg_concepts, h, w):
-    """``<seg_concept>.jpg`` per concept → [N-1, h, w] in [0, 1]."""
+    """One mask per ``+``-separated seg concept → [N-1, h, w] in [0, 1]:
+    ``<seg_concept>.png`` through the port's reader, else the JAX CLI's
+    ``<seg_concept>.jpg``, which needs PIL. Each is taken to gray and
+    resized to (h, w) as the JAX package's loader does it
+    (``convert("L").resize((w, h))``: PIL's default bicubic, reproduced
+    bit for bit by ``utils/image.py::resize_gray``)."""
     import numpy as np
-    from PIL import Image
+
+    from tweediemix_tpu_torch.utils.image import read_image, resize_gray, to_gray
 
     masks = []
     for name in seg_concepts.split("+"):
-        img = Image.open(os.path.join(mask_dir, name + ".jpg")).convert("L").resize((w, h))
-        masks.append(np.asarray(img, np.float32) / 255.0)
+        path = os.path.join(mask_dir, name + ".png")
+        if not os.path.exists(path):
+            path = os.path.join(mask_dir, name + ".jpg")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"--mask_dir {mask_dir} holds neither {name}.png nor {name}.jpg")
+        gray = resize_gray(to_gray(read_image(path)), h, w)
+        masks.append(gray.astype(np.float32) / 255.0)
     return np.stack(masks)
 
 
-def resolve_segment_fn(opt):
-    """Resolve the seg preset and build the boundary-step segment fn: real
-    weights supplied → "sam" (as the reference); one of --sam_checkpoint /
-    --detector_dir without the other and no explicit --seg_preset is an
-    error. Sets ``opt.seg_preset``. Returns None when --mask_dir supplies
-    the masks or no seg concepts are given."""
+def resolve_segment_fn(opt, device="cuda"):
+    """Resolve the seg preset and build the boundary-step segment fn (its
+    models on ``device``): real weights supplied → "sam" (as the
+    reference); one of --sam_checkpoint / --detector_dir without the other
+    and no explicit --seg_preset is an error. Sets ``opt.seg_preset``.
+    Returns None when --mask_dir supplies the masks or no seg concepts are
+    given."""
     from tweediemix_tpu_torch.segmentation import make_segment_fn
 
     if opt.seg_preset is None:
@@ -198,7 +215,7 @@ def resolve_segment_fn(opt):
         return make_segment_fn(
             opt.seg_concepts, opt.output_path, opt.seg_preset,
             sam_checkpoint=opt.sam_checkpoint, detector_dir=opt.detector_dir,
-            box_threshold=opt.box_threshold, detector=opt.detector,
+            box_threshold=opt.box_threshold, detector=opt.detector, device=device,
         )
     return None
 
@@ -208,8 +225,9 @@ def build_pipeline(opt, device="cuda", timings=None):
     delta loading, the LoRA ``t_stop`` default (sets ``opt.t_stop``), the
     FusionConfig, the segmentation stage and, under ``--quant``, the static
     activation scales. With a ``timings`` dict it records ``load_s``
-    (towers, VAE, tokenizers and deltas) and ``build_s`` (the UNet with its
-    concept slots, and the token surgery)."""
+    (towers, VAE, tokenizers, deltas and the segmentation models),
+    ``seg_load_s`` (the segmentation models alone) and ``build_s`` (the
+    UNet with its concept slots, and the token surgery)."""
     import torch
 
     from tweediemix_tpu_torch.concepts.delta import load_reference_delta
@@ -237,7 +255,8 @@ def build_pipeline(opt, device="cuda", timings=None):
         checkpoints = [load_reference_delta(path) for path in opt.personal_checkpoint.split("+")]
     else:
         checkpoints = [{"unet": {}, "modifier_token": {}, "modifier_token_2": {}} for _ in range(n)]
-    segment_fn = resolve_segment_fn(opt)
+    ts = sync()
+    segment_fn = resolve_segment_fn(opt, device)
     t1 = sync()
 
     if opt.t_stop is None:
@@ -260,7 +279,7 @@ def build_pipeline(opt, device="cuda", timings=None):
     if opt.quant:
         load_static_scales(pipe.unet, os.environ.get("TWEEDIEMIX_QUANT_SCALES") or None,
                            default_amax=float(os.environ.get("TWEEDIEMIX_QUANT_STATIC_SCALE", "0")))
-    timings.update(load_s=t1 - t0, build_s=sync() - t1)
+    timings.update(load_s=t1 - t0, seg_load_s=t1 - ts, build_s=sync() - t1)
     return pipe
 
 
@@ -328,6 +347,11 @@ def main(argv=None, device="cuda") -> int:
         save_image(imgs[i : i + 1], path)
         print(f"saved {path}")
     timings.update(encode_s=t1 - t0, sample_s=t2 - t1, phases=pipe.phase_seconds)
+    seg = pipe.sampler.segment_fn
+    if fg_masks is None and hasattr(seg, "no_detections"):
+        timings["segment_s"] = seg.seconds
+        print("segmentation: " + json.dumps(dict(
+            top_scores=seg.top_scores, no_detections=seg.no_detections, mask_areas=seg.areas)))
     print("timings: " + json.dumps(timings))
     return 0
 

@@ -28,10 +28,8 @@ in TF32 by default, so the pipeline turns TF32 off for matmuls
 from __future__ import annotations
 
 import dataclasses
-import struct
 import time
 import warnings
-import zlib
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -54,6 +52,7 @@ from tweediemix_tpu_torch.models.vae import (
     unscale_latents,
 )
 from tweediemix_tpu_torch.schedulers.ddim import DDIMTable
+from tweediemix_tpu_torch.utils.image import write_png
 
 
 def stack_text_embeds(embeds_list: Sequence[TextEmbeds]) -> TextEmbeds:
@@ -271,20 +270,7 @@ class TweedieMixPipeline:
 
 
 def save_image(img: torch.Tensor, path: str) -> None:
-    """[1, H, W, 3] float [0, 1] → an 8-bit RGB PNG (written with zlib and
-    struct, so no imaging package is needed); values are truncated to
-    integers as ``uint8`` casts do."""
-    arr = (img[0].float().cpu().numpy() * 255.0).astype(np.uint8)
-    h, w, _ = arr.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))  # 8-bit RGB
-           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))  # filter 0 on every row
-           + chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(png)
+    """[1, H, W, 3] float [0, 1] → an 8-bit RGB PNG (``utils/image.py``, so
+    no imaging package is needed); values are truncated to integers as
+    ``uint8`` casts do."""
+    write_png(path, (img[0].float().cpu().numpy() * 255.0).astype(np.uint8))

@@ -1,5 +1,5 @@
-"""CLIP text encoders (the dual SDXL pair) with modifier-token surgery
-(counterpart of the text half of ``tweediemix_tpu/models/clip.py``).
+"""CLIP text encoders (the dual SDXL pair) with modifier-token surgery, and
+the CLIP vision tower (counterpart of ``tweediemix_tpu/models/clip.py``).
 
 The reference takes, for each prompt, the *penultimate* hidden state of both
 SDXL text encoders concatenated on the feature axis, plus the pooled,
@@ -9,9 +9,12 @@ both tokenizers and their embedding rows set from the concept checkpoint.
 Module and parameter names are those of the HF ``CLIPTextModel`` /
 ``CLIPTextModelWithProjection`` checkpoints
 (``text_model.encoder.layers.0.self_attn.q_proj.weight``), so a checkpoint
-loads without renaming. The towers' attention over 77 tokens is plain torch
-math, as it is plain ``einsum``/softmax in the JAX package: scores in fp32,
-masked with the fp32 minimum.
+loads without renaming; so are the vision tower's (HF ``CLIPVisionModel`` /
+``CLIPVisionModelWithProjection``: ``vision_model.embeddings.patch_embedding``,
+``vision_model.pre_layrnorm``, ``visual_projection``). The towers' attention
+over 77 (text) or 257 (ViT-H/14 image) tokens is plain torch math, as it is
+plain ``einsum``/softmax in the JAX package: scores in fp32, masked with the
+fp32 minimum where the tower is causal.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tweediemix_tpu_torch.device import resolve_device
+
+# CLIP image-preprocessing statistics (CLIPImageProcessor defaults)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +104,9 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
 
-    def forward(self, x: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Self-attention over [B, T, D]; ``causal`` [T, T] (True = attend)
+        masks the scores, None attends everywhere (the vision towers)."""
         b, t, d = x.shape
         hd = d // self.num_heads
 
@@ -106,7 +115,8 @@ class CLIPAttention(nn.Module):
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd**-0.5)
-        s = s.masked_fill(~causal, torch.finfo(torch.float32).min)
+        if causal is not None:
+            s = s.masked_fill(~causal, torch.finfo(torch.float32).min)
         p = torch.softmax(s, dim=-1).to(v.dtype)
         o = torch.matmul(p, v).transpose(1, 2).reshape(b, t, d)
         return self.out_proj(o)
@@ -124,7 +134,11 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """One pre-LN transformer layer; ``cfg`` is a ``CLIPTextConfig`` or a
+    ``CLIPVisionConfig`` (hidden_size, num_heads, intermediate_size,
+    hidden_act)."""
+
+    def __init__(self, cfg):
         super().__init__()
         d = cfg.hidden_size
         self.layer_norm1 = nn.LayerNorm(d, eps=1e-5)
@@ -132,7 +146,7 @@ class CLIPEncoderLayer(nn.Module):
         self.layer_norm2 = nn.LayerNorm(d, eps=1e-5)
         self.mlp = CLIPMLP(d, cfg.intermediate_size, cfg.hidden_act)
 
-    def forward(self, x, causal):
+    def forward(self, x, causal=None):
         x = x + self.self_attn(self.layer_norm1(x), causal)
         return x + self.mlp(self.layer_norm2(x))
 
@@ -145,7 +159,7 @@ class CLIPTextEmbeddings(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg):
         super().__init__()
         self.layers = nn.ModuleList([CLIPEncoderLayer(cfg) for _ in range(cfg.num_layers)])
 
@@ -202,6 +216,111 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return penultimate, final, pooled, penultimate_ln
+
+
+# ---------------------------------------------------------------------------
+# the vision tower
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    hidden_act: str = "quick_gelu"
+    projection_dim: Optional[int] = 1024
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.hidden_act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"unknown hidden_act {self.hidden_act!r}")
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @staticmethod
+    def vit_h(**kw) -> "CLIPVisionConfig":
+        """OpenCLIP ViT-H/14 image tower (ali-vilab/i2vgen-xl image_encoder)."""
+        defaults = dict(hidden_size=1280, intermediate_size=5120,
+                        num_layers=32, num_heads=16, patch_size=14,
+                        hidden_act="gelu", projection_dim=1024)
+        defaults.update(kw)
+        return CLIPVisionConfig(**defaults)
+
+    @staticmethod
+    def tiny(**kw) -> "CLIPVisionConfig":
+        defaults = dict(image_size=32, patch_size=8, hidden_size=32,
+                        intermediate_size=64, num_layers=2, num_heads=2,
+                        projection_dim=32)
+        defaults.update(kw)
+        return CLIPVisionConfig(**defaults)
+
+
+class CLIPVisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.class_embedding = nn.Parameter(torch.empty(d))
+        self.patch_embedding = nn.Conv2d(3, d, cfg.patch_size, stride=cfg.patch_size, bias=False)
+        self.position_embedding = nn.Embedding(cfg.num_patches + 1, d)
+        nn.init.normal_(self.class_embedding, std=0.02)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] → [B, 1 + patches, D]: the class token, then the
+        patches in row-major order, plus the position embeddings."""
+        x = self.patch_embedding(pixels.permute(0, 3, 1, 2).to(self.patch_embedding.weight.dtype))
+        x = x.flatten(2).transpose(1, 2)
+        cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
+        return torch.cat([cls, x], dim=1) + self.position_embedding.weight.to(x.dtype)
+
+
+class CLIPVisionTransformer(nn.Module):
+    """The CLIP ViT: embeddings, a pre-LayerNorm (HF's ``pre_layrnorm``;
+    OWL-ViT names it ``pre_layernorm``), the non-causal encoder and the
+    post-LayerNorm; ``forward`` returns the post-LayerNormed sequence
+    [B, 1 + patches, D] (class token first)."""
+
+    def __init__(self, cfg: CLIPVisionConfig, pre_norm: str = "pre_layrnorm"):
+        super().__init__()
+        self.pre_norm = pre_norm
+        self.embeddings = CLIPVisionEmbeddings(cfg)
+        self.add_module(pre_norm, nn.LayerNorm(cfg.hidden_size, eps=1e-5))
+        self.encoder = CLIPEncoder(cfg)
+        self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        x = getattr(self, self.pre_norm)(self.embeddings(pixels))
+        for layer in self.encoder.layers:
+            x = layer(x)
+        return self.post_layernorm(x)
+
+
+class CLIPVisionModel(nn.Module):
+    """CLIP image tower → projected image embedding: forward(pixels
+    [B, H, W, 3], normalised with ``CLIP_IMAGE_MEAN``/``CLIP_IMAGE_STD``) →
+    the post-LayerNormed class token through ``visual_projection`` (no
+    bias) when ``projection_dim`` is set, [B, projection_dim] (the
+    I2VGen-XL image embedding). Parameters are created on ``device`` in
+    ``config.dtype``."""
+
+    def __init__(self, config: CLIPVisionConfig, device="cuda"):
+        super().__init__()
+        self.config = cfg = config
+        with torch.device(resolve_device(device)):
+            self.vision_model = CLIPVisionTransformer(cfg)
+            if cfg.projection_dim is not None:
+                self.visual_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+        self.to(cfg.dtype)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        pooled = self.vision_model(pixels)[:, 0]
+        if self.config.projection_dim is not None:
+            pooled = self.visual_projection(pooled)
+        return pooled
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,14 @@ UNet and VAE hold (``model.init(...)["params"]``, as numpy arrays). The rules:
 
 A key the module lacks, a key the tree lacks, or a shape that differs
 raises. A CLIP text tree goes through ``clip_torch_name`` to the HF names
-(``layers_0/q_proj`` → ``text_model.encoder.layers.0.self_attn.q_proj``).
+(``layers_0/q_proj`` → ``text_model.encoder.layers.0.self_attn.q_proj``);
+the segmentation stage's trees go through ``sam_entries``,
+``detector_entries`` and ``clip_vision_entries`` to segment-anything's and
+HF's names. A Flax ``ConvTranspose`` kernel (SAM's ``up1``/``up2``) is
+flipped in both spatial axes on its way into ``nn.ConvTranspose2d``: Flax
+(``transpose_kernel=False``) correlates the dilated input with the kernel,
+torch's transposed convolution scatters with it, and the two agree only
+with the kernel mirrored.
 
 The second half of the module loads checkpoint *directories* in the
 diffusers/HF layout (``unet/``, ``vae/``, ``text_encoder/``, …), the
@@ -39,7 +46,11 @@ shape raises, before any weight is read), and only then is it given memory
 on its device and filled one tensor at a time, so no host copy of the whole
 model is made. ``.safetensors`` files are read by the port's own reader
 (an 8-byte little-endian header length, a JSON header, raw bytes);
-``.bin`` files go through ``torch.load(weights_only=True)``.
+``.bin`` and ``.pth`` files go through ``torch.load(weights_only=True)``.
+The segmentation loaders (``load_sam``, ``load_detector``,
+``load_clip_vision_model``) read segment-anything's and HF's names as
+they are: a checkpoint's transposed-convolution kernels go into
+``nn.ConvTranspose2d`` unflipped, which is what upstream computes.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ import json
 import os
 import re
 import struct
-from typing import Callable, Dict, Iterator, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +68,9 @@ from torch import nn
 from tweediemix_tpu_torch.concepts.delta import cd_stack, is_lora_factor, lora_stack
 from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.ops.quant import quantize_weight_int8, quantize_weight_int8_conv
+
+# (tree path, leaf) → the (state-dict name, torch-layout array) pairs of the leaf
+EntriesFn = Callable[[Tuple[str, ...], np.ndarray], Iterable[Tuple[str, np.ndarray]]]
 
 _BLOCK_PARTS = r"(resnets|attentions|temp_convs|temp_attentions|downsamplers|upsamplers)"
 _RENAMES = (
@@ -113,16 +127,21 @@ _CLIP_RENAMES = (
 )
 
 
+def _renamed(path: Tuple[str, ...], renames) -> str:
+    """A tree path as a dotted name (``kernel``/``scale`` → ``weight``)
+    through ``renames``' (pattern, replacement) pairs in order."""
+    *scope, leaf = path
+    name = ".".join([*scope, {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)])
+    for pattern, repl in renames:
+        name = pattern.sub(repl, name)
+    return name
+
+
 def clip_torch_name(path: Tuple[str, ...]) -> str:
     """A CLIP text tree's path → the HF name the port's ``CLIPTextModel``
     uses (``("layers_0", "q_proj", "kernel")`` →
     ``text_model.encoder.layers.0.self_attn.q_proj.weight``)."""
-    *scope, leaf = path
-    leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
-    name = ".".join([*scope, leaf])
-    for pattern, repl in _CLIP_RENAMES:
-        name = pattern.sub(repl, name)
-    return name
+    return _renamed(path, _CLIP_RENAMES)
 
 
 def torch_layout(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
@@ -170,17 +189,24 @@ def quantize_weights(sd: Dict[str, torch.Tensor], want: Mapping) -> None:
 
 
 def convert_params(params: Mapping, module: nn.Module,
-                   name_fn: Callable[[Tuple[str, ...]], str] = torch_name) -> Dict[str, torch.Tensor]:
+                   name_fn: Callable[[Tuple[str, ...]], str] = torch_name,
+                   entries_fn: Optional[EntriesFn] = None) -> Dict[str, torch.Tensor]:
     """Flax parameter tree (the JAX UNet's, video UNet's, VAE's or one
     block's; a CLIP tower's with ``name_fn=clip_torch_name``) →
     ``module``'s state_dict as CPU tensors (fp32, and int8 where quantised);
-    raises listing every missing, unexpected or mis-shaped key."""
+    raises listing every missing, unexpected or mis-shaped key.
+    ``entries_fn(path, arr)`` (``sam_entries``, ``detector_entries``,
+    ``clip_vision_entries``), where given, yields the (name, torch-layout
+    array) pairs of each leaf instead of ``name_fn`` and ``torch_layout``."""
+    if entries_fn is None:
+        def entries_fn(path, arr):
+            return [(name_fn(path), torch_layout(path, arr))]
     sd = {}
     for path, arr in flatten_tree(params).items():
-        name = name_fn(path)
-        if name in sd:
-            raise ValueError(f"two parameters map to {name!r}")
-        sd[name] = torch.tensor(np.asarray(torch_layout(path, arr), dtype=np.float32))
+        for name, value in entries_fn(path, arr):
+            if name in sd:
+                raise ValueError(f"two parameters map to {name!r}")
+            sd[name] = torch.tensor(np.ascontiguousarray(value, dtype=np.float32))
     want = module.state_dict()
     merge_self_attention_qkv(sd, want)
     quantize_weights(sd, want)
@@ -201,10 +227,88 @@ def check_shapes(got: Mapping[str, tuple], want: Mapping[str, tuple], what: str)
 
 
 def load_params(module: nn.Module, params: Mapping,
-                name_fn: Callable[[Tuple[str, ...]], str] = torch_name) -> nn.Module:
+                name_fn: Callable[[Tuple[str, ...]], str] = torch_name,
+                entries_fn: Optional[EntriesFn] = None) -> nn.Module:
     """Load a JAX parameter tree into ``module`` (cast to its dtype)."""
-    module.load_state_dict(convert_params(params, module, name_fn))
+    module.load_state_dict(convert_params(params, module, name_fn, entries_fn))
     return module
+
+
+# ---------------------------------------------------------------------------
+# the segmentation stage's trees: SAM, the OWL-ViT detector, the CLIP vision
+# tower
+
+_SAM_RENAMES = (
+    (re.compile(r"^image_encoder\.patch_embed\."), "image_encoder.patch_embed.proj."),
+    (re.compile(r"^image_encoder\.blocks_(\d+)\.(qkv|proj)\."), r"image_encoder.blocks.\1.attn.\2."),
+    (re.compile(r"^image_encoder\.blocks_(\d+)\.(rel_pos_[hw])$"), r"image_encoder.blocks.\1.attn.\2"),
+    (re.compile(r"^image_encoder\.blocks_(\d+)\.mlp_lin([12])\."), r"image_encoder.blocks.\1.mlp.lin\2."),
+    (re.compile(r"^image_encoder\.blocks_(\d+)\."), r"image_encoder.blocks.\1."),
+    (re.compile(r"^image_encoder\.neck_(conv|norm)([12])\."),
+     lambda m: f"image_encoder.neck.{2 * int(m.group(2)) - (2 if m.group(1) == 'conv' else 1)}."),
+    (re.compile(r"^prompt_encoder\.pe_gaussian$"),
+     "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+    (re.compile(r"^prompt_encoder\.no_mask_embed$"), "prompt_encoder.no_mask_embed.weight"),
+    (re.compile(r"^mask_decoder\.layers_(\d+)\.mlp_lin([12])\."),
+     r"mask_decoder.transformer.layers.\1.mlp.lin\2."),
+    (re.compile(r"^mask_decoder\.layers_(\d+)\."), r"mask_decoder.transformer.layers.\1."),
+    (re.compile(r"^mask_decoder\.(final_attn_token_to_image|norm_final_attn)\."),
+     r"mask_decoder.transformer.\1."),
+    (re.compile(r"^mask_decoder\.(iou_token|mask_tokens)$"), r"mask_decoder.\1.weight"),
+    (re.compile(r"^mask_decoder\.up1\."), "mask_decoder.output_upscaling.0."),
+    (re.compile(r"^mask_decoder\.up_norm\."), "mask_decoder.output_upscaling.1."),
+    (re.compile(r"^mask_decoder\.up2\."), "mask_decoder.output_upscaling.3."),
+    (re.compile(r"^mask_decoder\.hyper_(\d+)_lin(\d)\."),
+     r"mask_decoder.output_hypernetworks_mlps.\1.layers.\2."),
+    (re.compile(r"^mask_decoder\.iou_lin(\d)\."), r"mask_decoder.iou_prediction_head.layers.\1."),
+)
+_VISION_RENAMES = (
+    (re.compile(r"^layers_(\d+)\.(q_proj|k_proj|v_proj|out_proj)\."), r"encoder.layers.\1.self_attn.\2."),
+    (re.compile(r"^layers_(\d+)\.(fc[12])\."), r"encoder.layers.\1.mlp.\2."),
+    (re.compile(r"^layers_(\d+)\.(layer_norm[12])\."), r"encoder.layers.\1.\2."),
+    (re.compile(r"^(patch_embedding\.weight|class_embedding)$"), r"embeddings.\1"),
+    (re.compile(r"^position_embedding$"), "embeddings.position_embedding.weight"),
+)
+_DETECTOR_HEADS = (
+    (re.compile(r"^merged_layer_norm\."), "layer_norm."),
+    (re.compile(r"^class_head_dense0\."), "class_head.dense0."),
+    (re.compile(r"^logit_(shift|scale)\."), r"class_head.logit_\1."),
+    (re.compile(r"^box_head_dense(\d)\."), r"box_head.dense\1."),
+)
+
+
+def sam_entries(path: Tuple[str, ...], arr: np.ndarray):
+    """A JAX SAM tree leaf → its segment-anything-named entries: the box
+    corner table [2, D] becomes ``point_embeddings.2``/``.3`` [1, D],
+    ``no_mask_embed`` [D] becomes [1, D], and the ``up1``/``up2``
+    transposed-convolution kernels [kh, kw, in, out] become [in, out, kh,
+    kw] flipped in both spatial axes (module docstring)."""
+    if path == ("prompt_encoder", "corner_embed"):
+        return [(f"prompt_encoder.point_embeddings.{i}.weight", arr[i - 2][None]) for i in (2, 3)]
+    name = _renamed(path, _SAM_RENAMES)
+    if path == ("prompt_encoder", "no_mask_embed"):
+        return [(name, arr[None])]
+    if path[:1] == ("mask_decoder",) and path[1] in ("up1", "up2") and path[-1] == "kernel":
+        return [(name, arr[::-1, ::-1].transpose(2, 3, 0, 1))]
+    return [(name, torch_layout(path, arr))]
+
+
+def clip_vision_entries(path: Tuple[str, ...], arr: np.ndarray):
+    """A JAX ``CLIPVisionModel`` tree leaf → its HF-named entry."""
+    if path[0] == "visual_projection":
+        return [("visual_projection.weight", arr.T)]
+    return [("vision_model." + _renamed(path, _VISION_RENAMES), torch_layout(path, arr))]
+
+
+def detector_entries(path: Tuple[str, ...], arr: np.ndarray):
+    """A JAX ``TextBoxDetector`` tree leaf → its HF-named entry."""
+    if path[0] == "vision_model":
+        name = "owlvit.vision_model." + _renamed(path[1:], _VISION_RENAMES)
+    elif path[0] == "text_model":
+        name = "owlvit." + clip_torch_name(path[1:])
+    else:
+        name = _renamed(path, _DETECTOR_HEADS)
+    return [(name, torch_layout(path, arr))]
 
 
 # ---------------------------------------------------------------------------
@@ -270,12 +374,17 @@ def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> int:
 class CheckpointDir(Mapping):
     """The tensors of a checkpoint directory: its ``*.safetensors`` files
     (preferred), read one tensor at a time on access, or else its ``*.bin``
-    files, loaded whole. ``shapes`` holds every tensor's shape."""
+    files, loaded whole; or of one checkpoint file (``.safetensors``, or
+    ``.bin``/``.pth`` through ``torch.load``). ``shapes`` holds every
+    tensor's shape."""
 
     def __init__(self, path: str):
-        files = sorted(os.listdir(path))
-        st_files = [os.path.join(path, f) for f in files if f.endswith(".safetensors")]
-        bin_files = [os.path.join(path, f) for f in files if f.endswith(".bin")]
+        if os.path.isfile(path):
+            st_files, bin_files = ([path], []) if path.endswith(".safetensors") else ([], [path])
+        else:
+            files = sorted(os.listdir(path))
+            st_files = [os.path.join(path, f) for f in files if f.endswith(".safetensors")]
+            bin_files = [os.path.join(path, f) for f in files if f.endswith(".bin")]
         self.path = path
         self._where: Dict[str, Tuple[str, dict, int]] = {}
         self._loaded: Dict[str, torch.Tensor] = {}
@@ -465,3 +574,51 @@ def load_clip_text_model(source, config, device="cuda"):
         source = CheckpointDir(source)
     return load_checkpoint(CLIPTextModel(config, device="meta"), source, device,
                            ignore=("text_model.embeddings.position_ids",))
+
+
+# segment-anything's point- and mask-prompt parameters: the port prompts with
+# boxes only and holds none of them
+SAM_UNUSED_PREFIXES = ("prompt_encoder.point_embeddings.0.", "prompt_encoder.point_embeddings.1.",
+                       "prompt_encoder.not_a_point_embed.", "prompt_encoder.mask_downscaling.")
+# OWL-ViT's contrastive head and position-id buffers
+DETECTOR_UNUSED = ("owlvit.visual_projection.weight", "owlvit.logit_scale",
+                   "owlvit.text_model.embeddings.position_ids",
+                   "owlvit.vision_model.embeddings.position_ids")
+
+
+def _source(source) -> Mapping:
+    return CheckpointDir(source) if isinstance(source, (str, os.PathLike)) else source
+
+
+def load_sam(source, config, device="cuda"):
+    """A ``SAM(config)`` on ``device`` from a segment-anything checkpoint:
+    a ``.pth`` file (``torch.load(weights_only=True)``), a ``.safetensors``
+    file, a directory of either, or its named tensors. The point- and
+    mask-prompt parameters (``SAM_UNUSED_PREFIXES``) are skipped; any other
+    name the module lacks raises."""
+    from tweediemix_tpu_torch.segmentation.sam import SAM
+
+    source = _source(source)
+    ignore = [k for k in source if k.startswith(SAM_UNUSED_PREFIXES)]
+    return load_checkpoint(SAM(config, device="meta"), source, device, ignore=ignore)
+
+
+def load_detector(source, config, device="cuda"):
+    """A ``TextBoxDetector(config)`` on ``device`` from an HF
+    ``OwlViTForObjectDetection`` directory (or its named tensors); the
+    contrastive head and position-id buffers (``DETECTOR_UNUSED``) are
+    skipped."""
+    from tweediemix_tpu_torch.segmentation.detector import TextBoxDetector
+
+    return load_checkpoint(TextBoxDetector(config, device="meta"), _source(source), device,
+                           ignore=DETECTOR_UNUSED)
+
+
+def load_clip_vision_model(source, config, device="cuda"):
+    """A ``CLIPVisionModel(config)`` on ``device`` from an HF
+    ``CLIPVisionModelWithProjection`` directory (or HF-named tensors); the
+    ``position_ids`` buffer older checkpoints carry is skipped."""
+    from tweediemix_tpu_torch.models.clip import CLIPVisionModel
+
+    return load_checkpoint(CLIPVisionModel(config, device="meta"), _source(source), device,
+                           ignore=("vision_model.embeddings.position_ids",))

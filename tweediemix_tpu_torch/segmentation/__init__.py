@@ -1,45 +1,41 @@
 """Segmentation stage of the fusion sampler (counterpart of
 ``tweediemix_tpu/segmentation``): a callable from the decoded Tweedie
-preview to image-resolution foreground masks.
+preview to image-resolution foreground masks, run in process at the
+sampler's boundary step.
 
-Only the weights-free ``heuristic`` preset is ported: vertical bands of the
-image, one per segmented concept, for smoke runs (not production quality).
-The model presets (``sam``: GroundingDINO/OWL-ViT boxes and SAM masks;
-``sam-random``) wait for ROADMAP item 13 and raise; they never fall back
-to the heuristic.
+Presets: ``sam`` loads SAM ViT-H and the OWL-ViT base-patch32 detector from
+local checkpoints (``sam_checkpoint``/``detector_dir``, or the
+``TWEEDIEMIX_SAM_CHECKPOINT``/``TWEEDIEMIX_DETECTOR_DIR`` environment
+variables); ``sam-random`` draws the tiny models from a seeded generator
+(tests, demos); ``heuristic`` substitutes vertical bands for real
+segmentation (smoke runs only, NOT production quality). The GroundingDINO
+detector (``detector="dino"``, or ``auto`` when it finds a DINO checkpoint)
+is not ported and raises; it never falls back to OWL-ViT.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import os
 import sys
 
-import torch
+from tweediemix_tpu_torch.segmentation.expand import expand_masks  # noqa: F401
+from tweediemix_tpu_torch.segmentation.lang_sam import (  # noqa: F401
+    HeuristicSegmenter,
+    LangSAM,
+    make_model_segment_fn,
+)
 
-
-@dataclasses.dataclass
-class HeuristicSegmenter:
-    """Split the image into ``n_concepts`` vertical bands of equal width:
-    image [1, H, W, 3] (or [H, W, 3]) → masks [n_concepts, H, W] on the
-    image's device."""
-
-    n_concepts: int
-
-    def __call__(self, image: torch.Tensor) -> torch.Tensor:
-        img = image[0] if image.ndim == 4 else image
-        h, w = img.shape[:2]
-        edges = torch.linspace(0, w, self.n_concepts + 1, device=img.device)
-        xs = torch.arange(w, device=img.device)
-        bands = [((xs >= edges[i]) & (xs < edges[i + 1])).float() for i in range(self.n_concepts)]
-        return torch.stack([band[None].expand(h, w) for band in bands])
+# default local checkpoint locations for the real-weights preset
+SAM_CHECKPOINT_ENV = "TWEEDIEMIX_SAM_CHECKPOINT"
+DETECTOR_DIR_ENV = "TWEEDIEMIX_DETECTOR_DIR"
 
 
 def make_segment_fn(seg_concepts: str, output_path: str, preset: str = "heuristic",
                     sam_checkpoint: str = None, detector_dir: str = None,
-                    box_threshold: float = 0.20, detector: str = "auto"):
+                    box_threshold: float = 0.20, detector: str = "auto", device="cuda"):
     """The fusion sampler's ``segment_fn`` for ``+``-separated
-    ``seg_concepts``. The arguments after ``preset`` belong to the model
-    presets, which are not ported yet."""
+    ``seg_concepts``, its models on ``device`` (``output_path`` is kept for
+    the JAX package's signature)."""
     concepts = seg_concepts.split("+")
     if preset == "heuristic":
         print(
@@ -48,12 +44,20 @@ def make_segment_fn(seg_concepts: str, output_path: str, preset: str = "heuristi
             file=sys.stderr,
         )
         return HeuristicSegmenter(len(concepts))
-    if preset in ("sam", "sam-random"):
-        raise NotImplementedError(
-            f"seg preset {preset!r} (SAM with a GroundingDINO/OWL-ViT detector) is not "
-            "ported to the torch package yet (ROADMAP item 13); pass --mask_dir or "
-            "--seg_preset heuristic"
-        )
+    if preset == "sam-random":
+        return make_model_segment_fn(LangSAM.random_init(device=device), seg_concepts)
+    if preset == "sam":
+        sam_checkpoint = sam_checkpoint or os.environ.get(SAM_CHECKPOINT_ENV)
+        detector_dir = detector_dir or os.environ.get(DETECTOR_DIR_ENV)
+        if not sam_checkpoint or not detector_dir:
+            raise FileNotFoundError(
+                "seg preset 'sam' needs --sam_checkpoint (segment-anything "
+                "ViT-H .pth/safetensors) and --detector_dir (HF OWL-ViT dir), "
+                f"or the {SAM_CHECKPOINT_ENV}/{DETECTOR_DIR_ENV} env vars"
+            )
+        ls = LangSAM.from_pretrained(sam_checkpoint, detector_dir, box_threshold=box_threshold,
+                                     detector=detector, device=device)
+        return make_model_segment_fn(ls, seg_concepts)
     raise ValueError(
         f"unknown segment preset {preset!r}; use 'sam', 'sam-random', "
         "'heuristic', or --mask_dir"

@@ -20,8 +20,9 @@ JAX or of the JAX package. Phases:
    through the kernel) against the same weights on the CPU (fp32, plain
    versions); with resampling, the card's distance from fp32 is held
    against the plain bf16 path's on the CPU; then small W8A8 UNets
-   ("int8" and "int8_conv", the int8 attention core on) the same way; the
-   tiny SAM and OWL-ViT detector on the card against the CPU in fp32;
+   ("int8" and "int8_conv", the int8 attention core on) the same way, and
+   small W8A8 UNet3Ds (both knobs on) likewise; the tiny SAM and OWL-ViT
+   detector on the card against the CPU in fp32;
 4. main path: the SDXL multi-concept fusion sample at full width (UNet
    ``sdxl(concept_slots=4)`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps at 1024², N=3, t_cond 0.2, resampling 10, jumping 5, half
@@ -47,7 +48,8 @@ JAX or of the JAX package. Phases:
    per concept from that PNG, and the fusion CLI reads them back through
    ``--mask_dir`` for a 4-step sample; SAM's encoder, the detector and the
    decoder are timed, and one global and one windowed ViT-H block are held
-   to fp32 on the CPU; the directory is deleted;
+   to fp32 on the CPU; the directory is deleted (the fusion PNG is kept for
+   phase 7);
 5. W8A8 main path: the same sample with ``quant="int8"`` at four seeds,
    static per-site activation scales calibrated on the card for these
    weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
@@ -63,7 +65,14 @@ JAX or of the JAX package. Phases:
    50 DDIM steps, CFG 9, 16 frames at 512², the short-attention knob on)
    through ``I2VPipeline.generate``, one warm and one timed clip with both
    kernels' launch counts checked, then one batch-2 UNet call profiled with
-   the knob on and off.
+   the knob on and off;
+7. the video CLI: a full-width I2VGen-XL directory of seeded random weights
+   in the diffusers layout (its parameter counts held, fp16 variant files,
+   the VAE in fp32) is written under ``build/`` and
+   ``tweediemix_tpu_torch.cli.run_video.main`` turns phase 4's PNG into a
+   16-frame 512² GIF at the reference's defaults, in bf16 and with
+   ``--quant int8`` and the int8 core on: each run's launches of all three
+   kernels are counted and its GIF read back by the port's decoder.
 
 It prints a JSON line of kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -718,16 +727,22 @@ CLI_FUSION = dict(n_timesteps=50, guidance_scale=0.8, t_cond=0.2, resampling_ste
 TOWER_REL_TOL = 5e-2
 
 
-def write_sdxl_checkpoint(root, configs, seed, device) -> dict:
+def write_checkpoint_dir(root, configs, seed, device) -> dict:
     """A checkpoint directory in the diffusers layout with seeded random
     weights (torch's default initialisation of the port's modules, whose
-    names are the diffusers names): ``unet/`` and ``text_encoder{,_2}/`` in
-    fp16, ``vae/`` in fp32 with a ``config.json``. ``configs`` maps each
-    folder to its (module class, config). Returns {folder: parameters}
-    and the bytes written."""
+    names are the diffusers names): every folder in fp16 but ``vae/``, in
+    fp32 with a ``config.json``. ``configs`` maps each folder to its
+    (module class, config). An I2VGen-XL UNet's spatial transformers hold
+    their projections as diffusers does, 1x1 convolutions [O, I, 1, 1]; the
+    towers carry the ``position_ids`` buffers older HF checkpoints hold.
+    The fp16 files are named as the hub names its fp16 variant
+    (``*.fp16.safetensors``). Returns {folder: parameters} and the bytes
+    written."""
     import torch
 
+    from tweediemix_tpu_torch.models.clip import CLIPVisionModel
     from tweediemix_tpu_torch.models.convert import checkpoint_state_dict, save_safetensors
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConditionModel
 
     torch.manual_seed(seed)
     counts, written = {}, 0
@@ -736,9 +751,17 @@ def write_sdxl_checkpoint(root, configs, seed, device) -> dict:
         dtype = torch.float32 if folder == "vae" else torch.float16
         state = checkpoint_state_dict(cls(dataclasses.replace(cfg, dtype=dtype), device=device))
         counts[folder] = sum(t.numel() for t in state.values())
+        if cls is UNet3DConditionModel:
+            for key, t in state.items():
+                if ".attentions." in key and key.endswith(("proj_in.weight", "proj_out.weight")):
+                    state[key] = t[:, :, None, None]
         if folder == "text_encoder":  # the buffer older HF checkpoints carry
             state["text_model.embeddings.position_ids"] = torch.arange(cfg.max_positions)[None]
+        if cls is CLIPVisionModel:
+            state["vision_model.embeddings.position_ids"] = torch.arange(cfg.num_patches + 1)[None]
         name = "diffusion_pytorch_model" if folder in ("unet", "vae") else "model"
+        if dtype == torch.float16:
+            name += ".fp16"
         written += save_safetensors(os.path.join(root, folder, f"{name}.safetensors"), state)
         del state
         if folder == "vae":
@@ -805,11 +828,12 @@ def write_concept_deltas(root, unet_shapes, dims, seed, device) -> list:
     return paths
 
 
-def phase_cli() -> dict:
+def phase_cli(keep_png: str) -> dict:
     """The port's CLI from a full-width SDXL checkpoint directory and three
     concept deltas to one 1024² PNG (the main path's FusionConfig, masks
     from the heuristic segmenter at the boundary step), then its checks;
-    then, from the same directory, ``phase_cli_segmentation``."""
+    then, from the same directory, ``phase_cli_segmentation``. The PNG is
+    copied to ``keep_png`` for the video CLI (the directory is deleted)."""
     import contextlib
     import io
     import shutil
@@ -845,7 +869,7 @@ def phase_cli() -> dict:
     build_pipeline = fusion_sampling.build_pipeline
     try:
         t0 = time.perf_counter()
-        ckpt = write_sdxl_checkpoint(root, configs, seed=0, device="cuda")
+        ckpt = write_checkpoint_dir(root, configs, seed=0, device="cuda")
         if ckpt["params"] != SDXL_PUBLISHED_PARAMS:
             fail(f"checkpoint parameters {ckpt['params']} differ from SDXL's {SDXL_PUBLISHED_PARAMS}")
         written = ckpt["bytes"] + write_tokenizers(root)
@@ -900,6 +924,7 @@ def phase_cli() -> dict:
             fail(f"PNG header {ihdr}, expected {fcfg.width}x{fcfg.height} 8-bit RGB")
         if pixels.min() == pixels.max():
             fail("every pixel of the PNG is equal")
+        shutil.copyfile(os.path.join(out, pngs[0]), keep_png)
 
         pipe = kept["pipe"]
         refs = [load_reference_delta(p) for p in deltas]
@@ -1637,6 +1662,173 @@ def phase_video_main_path() -> dict:
     return dict(runs=runs, expected_launches=expected, unet_params=n_params, profile=profile)
 
 
+def phase_reference_video_w8a8() -> dict:
+    """The small UNet3D of ``phase_reference_video`` under ``quant="int8"``
+    and ``"int8_conv"`` with both knobs on (the short kernel on the frame
+    axis, the int8 core at the 1024-token spatial self-attentions): the card
+    (bf16) against the same int8 weights on the CPU (fp32), held against the
+    plain bf16 W8A8 path's distance from the same CPU fp32 run."""
+    import torch
+
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
+    from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
+
+    kw = dict(block_out_channels=(64, 128), attention_head_dim=64, cross_attention_dim=64,
+              norm_num_groups=32, context_pool_size=8)
+    b, f, h, w, ctx_len = 2, 8, 32, 32, 9
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    args = (torch.randn((b, f, h, w, 4), generator=gen), 501,
+            0.2 * torch.randn((b, ctx_len, 64), generator=gen),
+            0.3 * torch.randn((b, f, h, w, 4), generator=gen),
+            0.2 * torch.randn((b, 1, 64), generator=gen), torch.full((b,), 8.0), 1.0, 1.0, 0.7)
+    out = {}
+    os.environ.update(TWEEDIEMIX_SHORT_ATTENTION="1", TWEEDIEMIX_FLASH_INT8="1")
+    try:
+        for quant in ("int8", "int8_conv"):
+            torch.manual_seed(11)
+            cpu = UNet3DConditionModel(UNet3DConfig.tiny(quant=quant, **kw), device="cpu")
+            cpu16 = UNet3DConditionModel(UNet3DConfig.tiny(quant=quant, dtype=torch.bfloat16, **kw),
+                                         device="cpu")
+            gpu = UNet3DConditionModel(UNet3DConfig.tiny(quant=quant, dtype=torch.bfloat16, **kw),
+                                       device="cuda")
+            cpu16.load_state_dict(cpu.state_dict())
+            gpu.load_state_dict(cpu.state_dict())
+            sites = video_sites_per_call(gpu.config, (h, w), f, ctx_len + 4 + 4)
+            with torch.inference_mode():
+                want = cpu(*args)
+                plain16 = cpu16(*args)
+                flash_attention.launches = flash_attention_int8.launches = 0
+                short_seq_attention.launches = 0
+                got = gpu(*(a.cuda() if torch.is_tensor(a) else a for a in args)).cpu()
+            launches = dict(short=short_seq_attention.launches, flash=flash_attention_int8.launches)
+            scale = want.abs().max()
+            rel_card = ((got - want).abs().max() / scale).item()
+            rel_plain = ((plain16 - want).abs().max() / scale).item()
+            log(f"reference: small W8A8 UNet3D ({quant}, both knobs) eps, max err / max |eps| "
+                f"against CPU fp32: card bf16 (kernels) {rel_card:.3e}, CPU bf16 (plain) "
+                f"{rel_plain:.3e}; short/int8 launches {launches}, bf16 flash "
+                f"{flash_attention.launches}, expected {sites}")
+            if not (torch.isfinite(got).all() and rel_card <= W8A8_RATIO_TOL * rel_plain):
+                fail(f"small W8A8 UNet3D ({quant}) on the card is {rel_card:.3e} from the CPU, "
+                     f"more than {W8A8_RATIO_TOL} x the plain bf16 path's {rel_plain:.3e}")
+            if sites["short"] == 0 or sites["flash"] == 0 or launches != sites or flash_attention.launches:
+                fail(f"small W8A8 UNet3D ({quant}): launches {launches} and bf16 flash "
+                     f"{flash_attention.launches}, expected {sites} and 0")
+            out[quant] = dict(rel_card=rel_card, rel_plain_bf16=rel_plain, launches=launches)
+    finally:
+        os.environ.pop("TWEEDIEMIX_SHORT_ATTENTION", None)
+        os.environ.pop("TWEEDIEMIX_FLASH_INT8", None)
+    return out
+
+
+# I2VGen-XL's diffusers folders (ali-vilab/i2vgen-xl): the image encoder
+# (OpenCLIP ViT-H/14 with its projection) and the VAE hold the published
+# counts; the UNet and the text tower hold the counts of the reference
+# package's configs (UNet3DConfig.i2vgen, CLIPTextConfig.i2vgen_text_encoder)
+I2VGEN_PARAMS = {"unet": 1_420_469_224, "text_encoder": 352_984_064,
+                 "image_encoder": 632_076_800, "vae": 83_653_863}
+CLI_VIDEO_PROMPT = "a cat and a dog running in the mountains"
+
+
+def phase_cli_video(png: str) -> dict:
+    """The video CLI at full width, the reference's second stage: a
+    diffusers-layout I2VGen-XL directory of seeded random weights (fp16
+    variant files, the VAE in fp32, synthetic tokenizers) is written under
+    ``build/``; ``tweediemix_tpu_torch.cli.run_video.main`` turns the fusion
+    CLI's 1024² PNG into a 16-frame 512² GIF at the reference's defaults
+    with the short-attention knob on, then again with ``--quant int8`` and
+    the int8 attention core on; each run's launches are counted and its GIF
+    read back by the port's decoder; the directory is deleted."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tweediemix_tpu_torch.cli import run_video
+    from tweediemix_tpu_torch.models.clip import (
+        CLIPTextConfig,
+        CLIPTextModel,
+        CLIPVisionConfig,
+        CLIPVisionModel,
+    )
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+    from tweediemix_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tweediemix_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_int8,
+        quantize_qkv_int8_fused,
+    )
+    from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
+    from tweediemix_tpu_torch.utils.image import read_gif
+    from tweediemix_tpu_torch.video.pipeline import VideoConfig
+
+    vcfg = VideoConfig()
+    ucfg = UNet3DConfig.i2vgen()
+    configs = {"unet": (UNet3DConditionModel, ucfg),
+               "text_encoder": (CLIPTextModel, CLIPTextConfig.i2vgen_text_encoder()),
+               "image_encoder": (CLIPVisionModel, CLIPVisionConfig.vit_h()),
+               "vae": (AutoencoderKL, VAEConfig(scaling_factor=0.18215))}
+    os.environ["TWEEDIEMIX_SHORT_ATTENTION"] = "1"
+    sites = video_sites_per_call(ucfg, vcfg.latent_hw, vcfg.num_frames, 77 + 64 + 4)
+    expected = {k: v * vcfg.n_timesteps for k, v in sites.items()}
+    if expected != dict(short=1700, flash=500):
+        fail(f"expected 1700 short and 500 flash launches per clip, the config gives {expected}")
+    root = tempfile.mkdtemp(prefix="cli_i2vgen_", dir=os.path.join(REPO, "build"))
+    try:
+        t0 = time.perf_counter()
+        ckpt = write_checkpoint_dir(root, configs, seed=2, device="cuda")
+        written = ckpt["bytes"] + write_tokenizers(root)
+        write_s = time.perf_counter() - t0
+        log(f"cli video: wrote {written / 1e9:.3f} GB in {write_s:.1f} s: {json.dumps(ckpt['params'])}")
+        if ckpt["params"] != I2VGEN_PARAMS:
+            fail(f"checkpoint parameters {ckpt['params']} differ from I2VGen-XL's {I2VGEN_PARAMS}")
+        torch.cuda.empty_cache()
+        runs, gifs = {}, {}
+        for label, extra, int8_core in (("bf16", [], False), ("w8a8", ["--quant", "int8"], True)):
+            out = os.path.join(root, f"clip_{label}.gif")
+            argv = ["--model_dir", root, "--image", png, "--prompt", CLI_VIDEO_PROMPT,
+                    "--output", out, "--seed", "0", *extra]
+            os.environ["TWEEDIEMIX_FLASH_INT8"] = "1" if int8_core else "0"
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = flash_attention_int8.launches = 0
+            quantize_qkv_int8_fused.launches = short_seq_attention.launches = 0
+            rc, text, wall = run_cli(run_video.main, argv)
+            launches = dict(short=short_seq_attention.launches, flash=flash_attention.launches,
+                            int8=flash_attention_int8.launches,
+                            int8_quantize=quantize_qkv_int8_fused.launches)
+            if rc != 0:
+                fail(f"the video CLI ({label}) returned {rc}")
+            want = (dict(short=1700, flash=0, int8=500, int8_quantize=500) if int8_core
+                    else dict(short=1700, flash=500, int8=0, int8_quantize=0))
+            if launches != want:
+                fail(f"video CLI ({label}) launches {launches}, expected {want}")
+            timings = json.loads(text.split("timings: ", 1)[1].splitlines()[0])
+            header, frames = read_gif(out)
+            if (frames.shape != (vcfg.num_frames, vcfg.height, vcfg.width, 3)
+                    or header["durations_ms"] != [120] * vcfg.num_frames or header["loop"] != 0):
+                fail(f"video CLI ({label}) GIF: {frames.shape}, {header}")
+            if frames.min() == frames.max():
+                fail(f"video CLI ({label}): every pixel of the GIF is equal")
+            runs[label] = dict(
+                gpu=gpu_name_and_power(), wall_s=wall, load_s=timings["load_s"],
+                build_s=timings["build_s"], encode_s=timings["encode_s"],
+                s_per_clip=timings["generate_s"], write_s=timings["write_s"],
+                phases={k: round(v, 4) for k, v in timings["phases"].items()},
+                max_memory_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+                gif_bytes=os.path.getsize(out), frame_mean=float(frames.mean()))
+            gifs[label] = frames.astype(np.int64)
+        stats = dict(bytes_written=written, write_s=write_s, params=ckpt["params"], runs=runs,
+                     w8a8_vs_bf16_mean_abs=float(np.abs(gifs["bf16"] - gifs["w8a8"]).mean()))
+        log(f"cli video path: {json.dumps(stats)}")
+        return stats
+    finally:
+        os.environ.pop("TWEEDIEMIX_SHORT_ATTENTION", None)
+        os.environ.pop("TWEEDIEMIX_FLASH_INT8", None)
+        shutil.rmtree(root)
+
+
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("short_attention", ("short_attn_kernel",)),
     ("flash_attention_int8", ("flash_int8_wgmma_kernel", "absmax_kernel", "quantize_kernel<")),
@@ -1729,14 +1921,20 @@ def main() -> None:
     reference_w8a8 = phase_reference_w8a8()
     short_rows = phase_kernels_short()
     reference_video = phase_reference_video()
+    reference_video_w8a8 = phase_reference_video_w8a8()
     reference_segmentation = phase_reference_segmentation()
     main_path = phase_main_path()
     torch.cuda.empty_cache()
-    cli = phase_cli()
+    fused_png = os.path.join(REPO, "build", "cli_fused.png")
+    cli = phase_cli(keep_png=fused_png)
     torch.cuda.empty_cache()
     w8a8 = phase_w8a8_main_path()
     torch.cuda.empty_cache()
     video = phase_video_main_path()
+    torch.cuda.empty_cache()
+    cli_video = phase_cli_video(fused_png)
+    os.remove(fused_png)
+    cli_runs = cli_video["runs"]
 
     def entry(name, source, replaces, launches, rows, **extra):
         head = rows[0]  # the first main-path shape
@@ -1751,12 +1949,14 @@ def main() -> None:
         entry("flash_attention", "tweediemix_tpu_torch/csrc/flash_attention.cu",
               "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
               kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"],
-              cli_launches=cli["launches"], cli_sam_launches=cli["segmentation"]["fusion"]["launches"]),
+              cli_launches=cli["launches"], cli_sam_launches=cli["segmentation"]["fusion"]["launches"],
+              cli_video_launches=cli_runs["bf16"]["launches"]["flash"]),
         entry("flash_attention_int8", "tweediemix_tpu_torch/csrc/flash_attention_int8.cu",
               "tweediemix_tpu/ops/flash_attention.py:113", w8a8["runs"][-1]["int8_launches"],
               int8_rows, wrapper_ms=int8_rows[0]["wrapper_ms"],
               sdpa_bf16_ms=int8_rows[0]["sdpa_bf16_ms"],
               host_us_per_call=int8_rows[0]["host_us_per_call"],
+              cli_video_launches=cli_runs["w8a8"]["launches"]["int8"],
               quantize=dict(launches=w8a8["runs"][-1]["quantize_launches"],
                             ms=int8_rows[0]["quant_ms"], plain_ms=int8_rows[0]["quant_plain_ms"],
                             bound_ms=int8_rows[0]["quant_bound_ms"], bound_by="bytes",
@@ -1764,12 +1964,14 @@ def main() -> None:
                             library_ms=None)),
         entry("short_attention", "tweediemix_tpu_torch/csrc/short_attention.cu",
               "tweediemix_tpu/ops/short_attention.py:51", video["runs"][-1]["launches"]["short"],
-              short_rows),
+              short_rows, cli_video_launches=cli_runs["bf16"]["launches"]["short"],
+              cli_video_w8a8_launches=cli_runs["w8a8"]["launches"]["short"]),
     ]
     log(json.dumps(dict(main_path=main_path, cli_path=cli, reference_w8a8=reference_w8a8,
                         reference_segmentation=reference_segmentation,
-                        w8a8_main_path=w8a8,
-                        reference_video=reference_video, video_path=video)))
+                        w8a8_main_path=w8a8, reference_video=reference_video,
+                        reference_video_w8a8=reference_video_w8a8, video_path=video,
+                        cli_video_path=cli_video)))
     log(json.dumps(dict(kernels=kernels)))
     log(gpu_name_and_power())
     log(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -33,7 +33,8 @@ def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     for name in ("fusion.pipeline", "video.pipeline", "utils.tokenizer", "models.clip",
                  "concepts.delta", "segmentation", "cli.fusion_sampling", "segmentation.sam",
-                 "segmentation.detector", "segmentation.lang_sam", "cli.segment", "utils.image"):
+                 "segmentation.detector", "segmentation.lang_sam", "cli.segment", "utils.image",
+                 "cli.run_video"):
         assert f"tweediemix_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -65,10 +66,9 @@ def test_port_sources_do_not_name_jax_or_the_jax_package():
 def test_port_imports_no_transformers_or_safetensors_and_pil_only_to_read_masks():
     """The GPU machine has neither transformers, safetensors nor cv2 and
     does not promise PIL: the port imports the first three nowhere, and PIL
-    only inside the functions that read or write image files other than
-    PNG: ``utils/image.py``'s reader of other formats (the fusion CLI's
-    --mask_dir JPGs, the segment CLI's input) and the video path's GIF
-    writer."""
+    only inside ``utils/image.py``'s reader of formats other than PNG (the
+    fusion CLI's --mask_dir JPGs, the segment and video CLIs' inputs); the
+    video path's GIF writer is the port's own."""
     offenders = []
     for path in _port_sources():
         if not path.endswith(".py"):
@@ -93,7 +93,7 @@ def test_port_imports_no_transformers_or_safetensors_and_pil_only_to_read_masks(
                     offenders.append(where)
                 elif top == "PIL":
                     scope = scopes.get(node)
-                    if scope is None or scope.name not in ("_read_with_pil", "export_gif"):
+                    if scope is None or scope.name != "_read_with_pil":
                         offenders.append(where)
     assert not offenders, offenders
 
@@ -136,6 +136,10 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
         CLIPTextModel(CLIPTextConfig.tiny())
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--model_preset", "tiny", "--concepts", "a+b", "--modifier_token", "<a>+<b>"])
+    from tweediemix_tpu_torch.cli import run_video
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_video.main(["--model_preset", "tiny", "--image", "x.png", "--prompt", "a cat"])
     from tweediemix_tpu_torch.cli import segment
     from tweediemix_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionModel
     from tweediemix_tpu_torch.segmentation import make_segment_fn
@@ -150,6 +154,24 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
                                         "--output_path", "out"])):
         with pytest.raises(RuntimeError, match="cuda"):
             build()
+
+
+def test_video_cli_runs_without_pil(tmp_path, monkeypatch, capsys):
+    """From a PNG to a GIF with PIL unimportable, as on a machine without
+    it: the port reads the picture and writes the clip itself."""
+    from tweediemix_tpu_torch.cli import run_video
+    from tweediemix_tpu_torch.utils.image import read_gif, write_png
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    png = str(tmp_path / "fused.png")
+    write_png(png, torch.randint(0, 256, (24, 20, 3), dtype=torch.uint8).numpy())
+    out = str(tmp_path / "clip.gif")
+    rc = run_video.main(["--model_preset", "tiny", "--image", png, "--prompt", "a cat",
+                         "--output", out, "--num_frames", "2", "--height", "32", "--width", "32",
+                         "--n_timesteps", "2"], device="cpu")
+    assert rc == 0 and "saved" in capsys.readouterr().out
+    header, frames = read_gif(out)
+    assert frames.shape == (2, 32, 32, 3) and header["loop"] == 0
 
 
 def test_package_exports_version_and_ddim_table():

@@ -358,8 +358,13 @@ def test_converter_rejects_missing_and_misshaped_keys(unet3d_case):
 
 
 def test_video_quant_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        port_unet3d.UNet3DConfig.tiny(quant="int8")
+    """The W8A8 mode is ported now (``test_torch_port_video_quant.py`` holds
+    it against the JAX package): the config takes the JAX package's modes
+    and refuses any other."""
+    assert port_unet3d.UNet3DConfig.tiny(quant="int8").quant == "int8"
+    assert port_unet3d.UNet3DConfig.tiny(quant="int8_conv").quant == "int8_conv"
+    with pytest.raises(ValueError, match="quant"):
+        port_unet3d.UNet3DConfig.tiny(quant="int4")
 
 
 # -- pipeline ---------------------------------------------------------------------------

@@ -51,7 +51,7 @@ def main(argv=None, device="cuda") -> int:
 
     from tweediemix_tpu_torch.device import resolve_device
     from tweediemix_tpu_torch.segmentation import make_segment_fn
-    from tweediemix_tpu_torch.utils.image import read_image, to_rgb, write_png
+    from tweediemix_tpu_torch.utils.image import read_image, write_png
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)  # before anything is written
@@ -59,7 +59,7 @@ def main(argv=None, device="cuda") -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    pixels = to_rgb(read_image(opt.input_path))
+    pixels = read_image(opt.input_path)
     image = torch.from_numpy(pixels.astype(np.float32) / 255.0).to(device)
     seg = make_segment_fn(opt.text_condition, opt.output_path, opt.seg_preset,
                           sam_checkpoint=opt.sam_checkpoint, detector_dir=opt.detector_dir,

@@ -38,9 +38,10 @@ with the kernel mirrored.
 The second half of the module loads checkpoint *directories* in the
 diffusers/HF layout (``unet/``, ``vae/``, ``text_encoder/``, …), the
 counterparts of the JAX package's ``load_*_params``: their names are the
-port's already, but for the merged ``attn1.to_qkv`` (stacked from
-``to_q``/``to_k``/``to_v`` once, at load), the concept stacks and the int8
-forms. A module is built on the ``meta`` device, the file's names and
+port's already, but for each self-attention's merged ``to_qkv`` (stacked
+from ``to_q``/``to_k``/``to_v`` once, at load), the concept stacks, the int8
+forms and, in the I2VGen-XL UNet, the spatial transformers' 1x1-conv
+projections (read as linear weights). A module is built on the ``meta`` device, the file's names and
 shapes are checked against it (a missing key, an unexpected key or a wrong
 shape raises, before any weight is read), and only then is it given memory
 on its device and filled one tensor at a time, so no host copy of the whole
@@ -415,7 +416,9 @@ class CheckpointDir(Mapping):
         return len(self.shapes)
 
 
-_QKV_PART = re.compile(r"^(.*\.attn1\.)to_([qkv])\.weight$")
+# a self-attention's q/k/v in a checkpoint; they fill the module's merged
+# to_qkv where it has one (every attn1, and the video UNet's temporal attn2)
+_QKV_PART = re.compile(r"^(.*\.)to_([qkv])\.weight$")
 
 
 def checkpoint_shapes(module: nn.Module) -> Dict[str, tuple]:
@@ -534,6 +537,53 @@ def load_unet(source, config, device="cuda", concept_kvs: Sequence[Mapping] = ()
         source = CheckpointDir(source)
     return load_checkpoint(UNet2DConditionModel(config, device="meta"), source, device,
                            concept_kvs=concept_kvs, concept_loras=concept_loras)
+
+
+# the I2VGen-XL UNet's spatial transformers project with 1x1 convolutions
+# (diffusers' use_linear_projection=False); the port's take linear weights
+_CONV_PROJECTION = re.compile(r"^(down_blocks\.\d+|up_blocks\.\d+|mid_block)\.attentions\.\d+\."
+                              r"proj_(in|out)\.weight$")
+
+
+class _LinearProjections(Mapping):
+    """A checkpoint's tensors with each 1x1-conv projection [O, I, 1, 1]
+    named by ``_CONV_PROJECTION`` read as a linear weight [O, I]."""
+
+    def __init__(self, source: Mapping):
+        self.source = source
+        shapes = getattr(source, "shapes", None) or {k: tuple(v.shape) for k, v in source.items()}
+        self.shapes = {k: self._squeezed(k, tuple(s)) for k, s in shapes.items()}
+
+    @staticmethod
+    def _squeezed(name: str, shape: tuple) -> tuple:
+        if _CONV_PROJECTION.match(name) and len(shape) == 4 and shape[2:] == (1, 1):
+            return shape[:2]
+        return shape
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        t = self.source[name]
+        return t.reshape(self.shapes[name]) if tuple(t.shape) != self.shapes[name] else t
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.shapes)
+
+    def __len__(self) -> int:
+        return len(self.shapes)
+
+
+def load_unet3d(source, config, device="cuda"):
+    """A ``UNet3DConditionModel(config)`` on ``device`` from a diffusers
+    ``I2VGenXLUNet`` ``unet/`` directory (or its named tensors), the
+    counterpart of the JAX package's ``load_unet3d_params``. The names are
+    diffusers' already; the spatial transformers' 1x1-conv ``proj_in``/
+    ``proj_out`` are read as linear weights, each self-attention's q/k/v
+    (the temporal blocks' ``attn2`` too) fill its merged ``to_qkv``, and
+    under ``config.quant`` the quantised sites take int8 weights and scales
+    from the fp32 values. A missing, unexpected or mis-shaped name raises."""
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConditionModel
+
+    return load_checkpoint(UNet3DConditionModel(config, device="meta"),
+                           _LinearProjections(_source(source)), device)
 
 
 def vae_config_overrides(vae_dir: str) -> Dict:

@@ -508,20 +508,22 @@ class UNet2DConditionModel(nn.Module):
 
 
 _SITE_RENAMES = (
-    (re.compile(r"(down_blocks|up_blocks)\.(\d+)\.attentions\.(\d+)"), r"\1_\2_attentions_\3"),
-    (re.compile(r"mid_block\.attentions\.(\d+)"), r"mid_block_attentions_\1"),
+    (re.compile(r"(down_blocks|up_blocks)\.(\d+)\.(attentions|temp_attentions)\.(\d+)"),
+     r"\1_\2_\3_\4"),
+    (re.compile(r"mid_block\.(attentions|temp_attentions)\.(\d+)"), r"mid_block_\1_\2"),
     (re.compile(r"transformer_blocks\.(\d+)"), r"transformer_blocks_\1"),
     (re.compile(r"\bto_out\.0$"), "to_out_0"),
     (re.compile(r"\bff\.net\.0\.proj$"), "ff.net_0_proj"),
     (re.compile(r"\bff\.net\.2$"), "ff.net_2"),
-    (re.compile(r"\battn1\.to_qkv$"), "attn1.qkv"),
+    (re.compile(r"\b(attn[12])\.to_qkv$"), r"\1.qkv"),
 )
 
 
 def quant_site(name: str) -> str:
     """A quantised matmul's module name → the JAX package's site key
-    (``"/".join(scope.path)``; the merged self-attention site ends in
-    ``/qkv``): ``down_blocks.1.attentions.0.transformer_blocks.0.ff.net.2``
+    (``"/".join(scope.path)``; a merged self-attention site ends in
+    ``/qkv``, the video UNet's temporal ``attn2`` included):
+    ``down_blocks.1.attentions.0.transformer_blocks.0.ff.net.2``
     → ``down_blocks_1_attentions_0/transformer_blocks_0/ff/net_2``."""
     for pattern, repl in _SITE_RENAMES:
         name = pattern.sub(repl, name)

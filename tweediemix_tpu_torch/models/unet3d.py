@@ -9,6 +9,14 @@ linear projections, ``Down/Upsample2D``) and, as there, one merged
 ``to_qkv`` per self-attention. Each level runs spatial resnet → temporal
 conv → spatial transformer → temporal transformer.
 
+W8A8 (``quant="int8"``) quantises the JAX package's sites: the spatial
+transformers (as in the SDXL UNet), and the temporal transformers'
+``proj_in``/``proj_out`` and each temporal block's ``attn1``, ``attn2`` (both
+self-attentions, one merged ``to_qkv`` each) and ``ff``, ``transformer_in``
+included; ``"int8_conv"`` adds the resnets' and resamplers' 3x3 convs. The
+temporal convs, the context conv stack, the image-latent encoder and the
+time/fps embeddings stay float. Each ``QLinear`` carries its JAX site key.
+
 The first-frame injection of the reference is a forward argument: a hard
 copy of frame 0 at the outputs of the two mid-block resnets
 (``inject_copy``) and an ``interp_ratio`` blend after
@@ -42,7 +50,10 @@ from tweediemix_tpu_torch.models.unet2d import (
     Transformer2DModel,
     UNetBlock,
     Upsample2D,
+    linear,
+    quant_site,
 )
+from tweediemix_tpu_torch.ops.quant import QUANT_MODES, QLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +72,14 @@ class UNet3DConfig:
     cross_attention_dim: int = 1024
     norm_num_groups: int = 32
     context_pool_size: int = 32  # avg-pool target of the context conv stack
-    # not ported yet: the video UNet's W8A8 mode raises when set
+    # W8A8: None, "int8" (transformer matmuls, spatial and temporal) or
+    # "int8_conv" (also the resnet and resampler 3x3 convs)
     quant: Optional[str] = None
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        if self.quant is not None:
-            raise NotImplementedError("UNet3DConfig.quant is not ported to the torch package yet")
+        if self.quant is not None and self.quant not in QUANT_MODES:
+            raise ValueError(f"UNet3DConfig.quant must be None or one of {QUANT_MODES}, got {self.quant!r}")
 
     @property
     def up_block_types(self):
@@ -167,14 +179,14 @@ class TemporalBasicBlock(nn.Module):
     """diffusers ``BasicTransformerBlock`` with ``double_self_attention``:
     two self-attentions over the frame axis and a GEGLU MLP."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, quant: Optional[str] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, dim_head)
+        self.attn1 = Attention(dim, heads, dim_head, quant=quant)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, heads, dim_head)
+        self.attn2 = Attention(dim, heads, dim_head, quant=quant)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, quant)
 
     def forward(self, x):  # [N, F, C]
         x = x + self.attn1(self.norm1(x))
@@ -188,14 +200,14 @@ class TransformerTemporalModel(nn.Module):
     every pixel row, linear out, residual."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, num_layers: int = 1,
-                 norm_num_groups: int = 32):
+                 norm_num_groups: int = 32, quant: Optional[str] = None):
         super().__init__()
         inner = heads * dim_head
         self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = linear(in_channels, inner, quant=quant)
         self.transformer_blocks = nn.ModuleList(
-            [TemporalBasicBlock(inner, heads, dim_head) for _ in range(num_layers)])
-        self.proj_out = nn.Linear(inner, in_channels)
+            [TemporalBasicBlock(inner, heads, dim_head, quant) for _ in range(num_layers)])
+        self.proj_out = linear(inner, in_channels, quant=quant)
 
     def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
         """x: [B·F, C, h, w]."""
@@ -308,11 +320,15 @@ class UNet3DConditionModel(nn.Module):
         self.config = cfg = config
         with torch.device(resolve_device(device)):
             self._build(cfg)
+        for name, m in self.named_modules():
+            if isinstance(m, QLinear):
+                m.site = quant_site(name)
         self.to(cfg.dtype)
 
     def _build(self, cfg: UNet3DConfig):
         c0, temb_ch, cin = cfg.block_out_channels[0], cfg.time_embed_dim, cfg.in_channels
         ctx_dim, groups, hd = cfg.cross_attention_dim, cfg.norm_num_groups, cfg.attention_head_dim
+        quant = cfg.quant
         self.conv_in = nn.Conv2d(2 * cin, c0, 3, padding=1)  # noisy latent + image latent
         self.time_embedding = TimestepEmbedding(c0, temb_ch)
         self.fps_embedding = MLPEmbedding(c0, temb_ch, temb_ch)
@@ -328,16 +344,18 @@ class UNet3DConditionModel(nn.Module):
             nn.Conv2d(cin * 4, cin, 3, padding=1),
         )
         self.image_latents_temporal_encoder = ImageLatentsTemporalEncoder(cin, 2, cin, cin * 4)
-        self.transformer_in = TransformerTemporalModel(c0, 8, hd, 1, groups)
+        self.transformer_in = TransformerTemporalModel(c0, 8, hd, 1, groups, quant)
 
         def heads(ch):
             return max(1, ch // hd)
 
         def level_layers(in_ch, out_ch, has_attn):
-            return (ResnetBlock2D(in_ch, out_ch, temb_ch, groups),
+            return (ResnetBlock2D(in_ch, out_ch, temb_ch, groups, quant),
                     TemporalConvLayer(out_ch, groups),
-                    Transformer2DModel(out_ch, heads(out_ch), hd, 1, ctx_dim, groups) if has_attn else None,
-                    TransformerTemporalModel(out_ch, heads(out_ch), hd, 1, groups) if has_attn else None)
+                    Transformer2DModel(out_ch, heads(out_ch), hd, 1, ctx_dim, groups,
+                                       quant=quant) if has_attn else None,
+                    TransformerTemporalModel(out_ch, heads(out_ch), hd, 1, groups,
+                                             quant) if has_attn else None)
 
         def block(layers, **samplers):
             resnets, convs, attns, temps = zip(*layers)
@@ -357,7 +375,7 @@ class UNet3DConditionModel(nn.Module):
                 skip_channels.append(out_ch)
             samplers = []
             if level < n_levels - 1:
-                samplers.append(Downsample2D(out_ch))
+                samplers.append(Downsample2D(out_ch, quant))
                 skip_channels.append(out_ch)
             self.down_blocks.append(block(layers, downsamplers=samplers))
 
@@ -375,7 +393,7 @@ class UNet3DConditionModel(nn.Module):
                 layers.append(level_layers(in_ch + skip_channels.pop(), out_ch,
                                            block_type == "CrossAttnUpBlock3D"))
                 in_ch = out_ch
-            samplers = [Upsample2D(out_ch)] if i < n_levels - 1 else []
+            samplers = [Upsample2D(out_ch, quant)] if i < n_levels - 1 else []
             self.up_blocks.append(block(layers, upsamplers=samplers))
 
         self.conv_norm_out = nn.GroupNorm(groups, c0, eps=1e-5)

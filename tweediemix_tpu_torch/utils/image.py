@@ -1,10 +1,17 @@
 """Image files without an imaging package: an 8-bit PNG reader and writer
-(``zlib`` and ``struct``) and the resize that PIL's ``Image.resize`` applies
-by default to an 8-bit gray image.
+(``zlib`` and ``struct``), an animated-GIF writer and reader, and the resize
+that PIL's ``Image.resize`` applies by default to an 8-bit gray or RGB
+image.
 
-The writer stores 8-bit gray or RGB, every row with filter 0. The reader
-takes 8-bit, non-interlaced gray, gray + alpha, RGB and RGBA with any of
-the five row filters, and checks every chunk's CRC.
+The PNG writer stores 8-bit gray or RGB, every row with filter 0. The PNG
+reader takes 8-bit, non-interlaced gray, gray + alpha, RGB and RGBA with
+any of the five row filters, and checks every chunk's CRC.
+
+The GIF writer stores GIF89a: per frame an adaptive palette of at most 256
+colours (a frame's own colours where it has no more, else a median cut of
+them), LZW-coded indices, a ``NETSCAPE2.0`` loop count and a delay in
+centiseconds; the reader decodes what it writes (and other GIFs without
+interlacing).
 """
 
 from __future__ import annotations
@@ -148,22 +155,39 @@ def _pil_coefficients(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _pil_pass(img: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
-    """One axis of PIL's resample on the last axis of uint8 ``img``."""
-    acc = img.astype(np.int64) @ coeffs.T + (1 << (_PRECISION_BITS - 1))
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    """One axis of PIL's resample on the last axis of uint8 ``img``. Every
+    product and partial sum is an integer below 2^31, so a float64 product
+    (BLAS) sums them exactly."""
+    flat = np.ascontiguousarray(img, np.float64).reshape(-1, img.shape[-1])
+    acc = (flat @ coeffs.T.astype(np.float64)).astype(np.int64).reshape(*img.shape[:-1], -1)
+    return np.clip((acc + (1 << (_PRECISION_BITS - 1))) >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _resize_planes(planes: np.ndarray, h: int, w: int) -> np.ndarray:
+    """uint8 [..., H, W] → [..., h, w] as PIL resizes each band: the width
+    pass first, each pass rounded to 8 bits, a pass skipped where its size
+    does not change."""
+    out = np.asarray(planes, np.uint8)
+    if out.shape[-1] != w:
+        out = _pil_pass(out, _pil_coefficients(out.shape[-1], w))
+    if out.shape[-2] != h:
+        out = np.swapaxes(_pil_pass(np.swapaxes(out, -1, -2), _pil_coefficients(out.shape[-2], h)),
+                          -1, -2)
+    return np.ascontiguousarray(out)
 
 
 def resize_gray(gray: np.ndarray, h: int, w: int) -> np.ndarray:
     """uint8 [H, W] → [h, w] exactly as PIL's ``Image.resize((w, h))`` does
-    for an 8-bit gray image by default: bicubic (a = -0.5), the width pass
-    first, each pass rounded to 8 bits, a pass skipped where its size does
-    not change."""
-    out = np.asarray(gray, np.uint8)
-    if out.shape[1] != w:
-        out = _pil_pass(out, _pil_coefficients(out.shape[1], w))
-    if out.shape[0] != h:
-        out = _pil_pass(out.T, _pil_coefficients(out.shape[0], h)).T
-    return np.ascontiguousarray(out)
+    for an 8-bit gray image by default: bicubic (a = -0.5) in PIL's fixed
+    point."""
+    return _resize_planes(gray, h, w)
+
+
+def resize_rgb(rgb: np.ndarray, h: int, w: int) -> np.ndarray:
+    """uint8 [H, W, 3] → [h, w, 3] exactly as PIL's ``Image.resize((w, h))``
+    does for an RGB image by default: each band resampled on its own with
+    the gray image's coefficients."""
+    return np.ascontiguousarray(np.moveaxis(_resize_planes(np.moveaxis(rgb, -1, 0), h, w), 0, -1))
 
 
 
@@ -183,11 +207,12 @@ def _read_with_pil(path: str) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """uint8 [H, W, C] of a PNG (the port's reader) or, where PIL imports,
-    of any other image file."""
+    """uint8 [H, W, 3] of a PNG (the port's reader; gray, RGB, with or
+    without alpha) or, where PIL imports, of any other image file, as PIL's
+    ``Image.open(path).convert("RGB")`` gives it."""
     with open(path, "rb") as f:
         is_png = f.read(8) == PNG_SIGNATURE
-    return read_png(path)[1] if is_png else _read_with_pil(path)
+    return to_rgb(read_png(path)[1] if is_png else _read_with_pil(path))
 
 
 def to_rgb(pixels: np.ndarray) -> np.ndarray:
@@ -196,3 +221,219 @@ def to_rgb(pixels: np.ndarray) -> np.ndarray:
     if pixels.shape[-1] in (1, 2):
         return np.repeat(pixels[..., :1], 3, axis=-1)
     return pixels[..., :3]
+
+
+# -- animated GIF -------------------------------------------------------------
+
+_LZW_MAX_CODES = 4096  # 12-bit codes
+_GIF_COLOURS = 256
+
+
+def median_cut_palette(pixels: np.ndarray):
+    """uint8 [..., 3] → (palette uint8 [P, 3], P ≤ 256; indices [...] into
+    it). A frame with at most 256 distinct colours keeps them exactly.
+    Otherwise its distinct colours, weighted by their pixel counts, are
+    split by median cut: the box with the widest channel range is cut at
+    the weighted median of that channel until there are 256 boxes, and
+    each box's colour is its pixels' rounded mean."""
+    flat = np.asarray(pixels, np.uint8).reshape(-1, 3).astype(np.int64)
+    packed = (flat[:, 0] << 16) | (flat[:, 1] << 8) | flat[:, 2]
+    uniq, inverse, counts = np.unique(packed, return_inverse=True, return_counts=True)
+    rgb = np.stack([uniq >> 16, (uniq >> 8) & 0xFF, uniq & 0xFF], axis=1).astype(np.uint8)
+    if len(uniq) <= _GIF_COLOURS:
+        return rgb, inverse.reshape(pixels.shape[:-1])
+
+    def spread(box):
+        c = rgb[box]
+        return c.max(axis=0).astype(np.int64) - c.min(axis=0)
+
+    boxes = [np.arange(len(uniq))]
+    spreads = [spread(boxes[0])]
+    widest = [int(spreads[0].max())]  # -1 for a box of one colour
+    while len(boxes) < _GIF_COLOURS:
+        i = int(np.argmax(widest))
+        box, axis = boxes.pop(i), int(np.argmax(spreads.pop(i)))
+        widest.pop(i)
+        box = box[np.argsort(rgb[box, axis], kind="stable")]
+        weight = np.cumsum(counts[box])
+        cut = min(max(int(np.searchsorted(weight, weight[-1] / 2)) + 1, 1), len(box) - 1)
+        for part in (box[:cut], box[cut:]):
+            boxes.append(part)
+            spreads.append(spread(part))
+            widest.append(int(spreads[-1].max()) if len(part) > 1 else -1)
+    palette = np.empty((len(boxes), 3), np.uint8)
+    box_of = np.empty(len(uniq), np.int64)
+    for j, box in enumerate(boxes):
+        w = counts[box]
+        palette[j] = np.round((rgb[box] * w[:, None]).sum(axis=0) / w.sum())
+        box_of[box] = j
+    return palette, box_of[inverse].reshape(pixels.shape[:-1])
+
+
+def _lzw_encode(indices: bytes, min_code_size: int) -> bytes:
+    """GIF's variable-width LZW (codes of ``min_code_size`` + 1 to 12 bits,
+    least significant bit first, a clear code first and whenever the table
+    fills, the end code last)."""
+    clear = 1 << min_code_size
+    end = clear + 1
+    codes, widths = [clear], [min_code_size + 1]
+    table = {}
+    next_code, width = end + 1, min_code_size + 1
+    prefix = indices[0]
+    for b in indices[1:]:
+        key = (prefix << 8) | b
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        codes.append(prefix)
+        widths.append(width)
+        if next_code < _LZW_MAX_CODES:
+            table[key] = next_code
+            next_code += 1
+            # the decoder reads a wider code once its table (one entry
+            # behind this one) has filled the current width
+            if next_code > (1 << width) and width < 12:
+                width += 1
+        else:
+            codes.append(clear)
+            widths.append(width)
+            table.clear()
+            next_code, width = end + 1, min_code_size + 1
+        prefix = b
+    codes += [prefix, end]
+    widths += [width, width]
+    codes, widths = np.asarray(codes, np.int64), np.asarray(widths, np.int64)
+    bits = (codes[:, None] >> np.arange(12)) & 1
+    keep = np.arange(12)[None, :] < widths[:, None]
+    return np.packbits(bits[keep].astype(np.uint8), bitorder="little").tobytes()
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i : i + 255])]) + data[i : i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def write_gif(path: str, frames: np.ndarray, duration_ms: int) -> None:
+    """uint8 [F, H, W, 3] → an animated GIF89a: each frame with its own
+    ``median_cut_palette`` (frame 0's as the global table), shown for
+    ``duration_ms`` milliseconds (stored as ``duration_ms // 10``
+    centiseconds, as PIL stores it), looping forever (loop count 0)."""
+    frames = np.asarray(frames, np.uint8)
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"write_gif takes uint8 [F, H, W, 3] frames, got {frames.shape}")
+    _, h, w, _ = frames.shape
+    out = [b"GIF89a"]
+    for i, frame in enumerate(frames):
+        palette, indices = median_cut_palette(frame)
+        bits = max(1, int(np.ceil(np.log2(len(palette)))))
+        table = np.zeros((1 << bits, 3), np.uint8)
+        table[: len(palette)] = palette
+        flags = 0x80 | (bits - 1)  # a colour table of 2^bits entries
+        if i == 0:
+            out.append(struct.pack("<HHBBB", w, h, flags | 0x70, 0, 0) + table.tobytes())
+            out.append(b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00")
+        out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", duration_ms // 10) + b"\x00\x00")
+        descriptor = b"\x2c" + struct.pack("<HHHH", 0, 0, w, h)
+        out.append(descriptor + (b"\x00" if i == 0 else bytes([flags]) + table.tobytes()))
+        min_code_size = max(2, bits)
+        data = _lzw_encode(indices.astype(np.uint8).tobytes(), min_code_size)
+        out.append(bytes([min_code_size]) + _sub_blocks(data))
+    out.append(b"\x3b")
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def _lzw_decode(data: bytes, min_code_size: int, n: int) -> bytes:
+    """The inverse of ``_lzw_encode``: the first ``n`` indices."""
+    clear = 1 << min_code_size
+    end = clear + 1
+    base = [bytes([i]) for i in range(clear)] + [b"", b""]
+    table = list(base)
+    width, prev = min_code_size + 1, None
+    out, have = [], 0
+    acc = nbits = pos = 0
+    while have < n:
+        while nbits < width:
+            if pos >= len(data):
+                raise ValueError("GIF image data ends before its pixels")
+            acc |= data[pos] << nbits
+            pos += 1
+            nbits += 8
+        code = acc & ((1 << width) - 1)
+        acc >>= width
+        nbits -= width
+        if code == clear:
+            table, width, prev = list(base), min_code_size + 1, None
+            continue
+        if code == end:
+            break
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = table[code] if code < len(table) else prev + prev[:1]
+            if len(table) < _LZW_MAX_CODES:
+                table.append(prev + entry[:1])
+                if len(table) == (1 << width) and width < 12:
+                    width += 1
+        out.append(entry)
+        have += len(entry)
+        prev = entry
+    return b"".join(out)[:n]
+
+
+def read_gif(path: str):
+    """An animated GIF → (header dict: width, height, loop (None without a
+    ``NETSCAPE2.0`` block), durations_ms per frame; frames uint8
+    [F, H, W, 3]). Frames are taken whole (each covers the screen, as
+    ``write_gif`` writes them); interlaced images are refused."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError(f"{path}: not a GIF")
+    w, h, flags, _, _ = struct.unpack("<HHBBB", data[6:13])
+    pos = 13
+    global_table = None
+    if flags & 0x80:
+        size = 3 << ((flags & 7) + 1)
+        global_table = np.frombuffer(data[pos : pos + size], np.uint8).reshape(-1, 3)
+        pos += size
+
+    def blocks(pos):
+        chunks = []
+        while data[pos]:
+            chunks.append(data[pos + 1 : pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        return b"".join(chunks), pos + 1
+
+    header = dict(width=w, height=h, loop=None, durations_ms=[])
+    frames, delay = [], 0
+    while pos < len(data):
+        tag = data[pos]
+        if tag == 0x3B:
+            break
+        if tag == 0x21:
+            label = data[pos + 1]
+            body, pos = blocks(pos + 2)
+            if label == 0xF9:
+                delay = struct.unpack("<H", body[1:3])[0] * 10
+            elif label == 0xFF and body[:11] == b"NETSCAPE2.0":
+                header["loop"] = struct.unpack("<H", body[12:14])[0]
+            continue
+        if tag != 0x2C:
+            raise ValueError(f"{path}: unknown block 0x{tag:02x}")
+        _, _, fw, fh, fflags = struct.unpack("<HHHHB", data[pos + 1 : pos + 10])
+        pos += 10
+        table = global_table
+        if fflags & 0x80:
+            size = 3 << ((fflags & 7) + 1)
+            table = np.frombuffer(data[pos : pos + size], np.uint8).reshape(-1, 3)
+            pos += size
+        if fflags & 0x40 or (fw, fh) != (w, h) or table is None:
+            raise ValueError(f"{path}: only whole, non-interlaced frames with a colour table are read")
+        min_code_size = data[pos]
+        body, pos = blocks(pos + 1)
+        indices = np.frombuffer(_lzw_decode(body, min_code_size, w * h), np.uint8)
+        frames.append(table[indices].reshape(h, w, 3))
+        header["durations_ms"].append(delay)
+    return header, np.stack(frames)

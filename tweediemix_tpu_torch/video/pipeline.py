@@ -13,9 +13,10 @@ loop).
 
 The context tokens, the projected image latents and every spatial
 cross-attention's K/V run once per trajectory (``precompute_video_cache``).
-Prompt and image encoding come with the text-encoder slice: ``generate``
-takes the text contexts and the CLIP image embedding as tensors. The JAX
-package's sharded loop over a device mesh has no one-card counterpart here.
+``generate`` takes the text contexts and the CLIP image embedding as
+tensors; ``cli/run_video.py`` encodes them from a prompt and a picture. The
+JAX package's sharded loop over a device mesh has no one-card counterpart
+here.
 
 Numerics: the VAE runs in fp32 with TF32 off for matmuls and convolutions in
 this process, as in ``fusion.pipeline``.
@@ -45,6 +46,7 @@ from tweediemix_tpu_torch.models.vae import (
     unscale_latents,
 )
 from tweediemix_tpu_torch.schedulers.ddim import cfg as cfg_combine, make_betas, video_rotation_step
+from tweediemix_tpu_torch.utils.image import write_gif
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,9 +252,9 @@ class I2VPipeline:
 
 
 def export_gif(video: torch.Tensor, path: str, fps: int = 8):
-    """[F, H, W, 3] float in [0, 1] → animated GIF."""
-    from PIL import Image
-
+    """[F, H, W, 3] float in [0, 1] → animated GIF through the port's own
+    writer (``utils.image.write_gif``, no imaging package): the frames'
+    pixels truncated from ×255 as the JAX package's ``export_gif`` makes
+    them, each shown ``int(1000 / fps)`` ms, looping forever."""
     arr = (video.float().cpu().numpy() * 255.0).astype(np.uint8)
-    frames = [Image.fromarray(f) for f in arr]
-    frames[0].save(path, save_all=True, append_images=frames[1:], duration=int(1000 / fps), loop=0)
+    write_gif(path, arr, duration_ms=int(1000 / fps))

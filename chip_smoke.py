@@ -15,14 +15,19 @@ JAX or of the JAX package. Phases:
    wrapper's host cost per call); the int8 kernel also against exact fp32
    attention, with its exp2 and issue floors, and its two fused quantise
    passes bitwise against their plain versions, timed against their byte
-   bound;
+   bound; the bf16 kernel with a gradient at the training shape
+   (``FlashAttention``: the kernel forward, the math backward), dq/dk/dv
+   against autograd of the fp32 plain version, with the backward's time,
+   bound and SDPA's forward+backward;
 3. reference: a small UNet and a short fusion sample on the card (bf16,
    through the kernel) against the same weights on the CPU (fp32, plain
    versions); with resampling, the card's distance from fp32 is held
    against the plain bf16 path's on the CPU; then small W8A8 UNets
    ("int8" and "int8_conv", the int8 attention core on) the same way, and
    small W8A8 UNet3Ds (both knobs on) likewise; the tiny SAM and OWL-ViT
-   detector on the card against the CPU in fp32;
+   detector on the card against the CPU in fp32; one train step of a small
+   config (remat, a modifier token, prior preservation) on the card in bf16
+   against the CPU in fp32, held against the plain bf16 path's distance;
 4. main path: the SDXL multi-concept fusion sample at full width (UNet
    ``sdxl(concept_slots=4)`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps at 1024², N=3, t_cond 0.2, resampling 10, jumping 5, half
@@ -48,8 +53,14 @@ JAX or of the JAX package. Phases:
    per concept from that PNG, and the fusion CLI reads them back through
    ``--mask_dir`` for a 4-step sample; SAM's encoder, the detector and the
    decoder are timed, and one global and one windowed ViT-H block are held
-   to fp32 on the CPU; the directory is deleted (the fusion PNG is kept for
-   phase 7);
+   to fp32 on the CPU; then, from the same directory, the training CLI
+   (``phase_cli_train``): instance PNGs, class images sampled into an empty
+   directory, 10 steps at 512² with prior preservation, a modifier token and
+   remat (saving at 5), then 3 steps with ``--train_text_encoder
+   --use_8bit_adam``, each run's launches per step counted, its trainable
+   leaves moved and frozen ones bit-equal, one step profiled, and the
+   trained delta sampled by the fusion CLI; the directory is deleted (the
+   fusion PNG is kept for phase 7);
 5. W8A8 main path: the same sample with ``quant="int8"`` at four seeds,
    static per-site activation scales calibrated on the card for these
    weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
@@ -984,6 +995,8 @@ def phase_cli(keep_png: str) -> dict:
         del pipe, kept["pipe"], cpu_text, ctx, pooled
         torch.cuda.empty_cache()
         stats["segmentation"] = phase_cli_segmentation(root, argv, expected)
+        torch.cuda.empty_cache()
+        stats["train"] = phase_cli_train(root, argv, deltas)
         return stats
     finally:
         fusion_sampling.build_pipeline = build_pipeline
@@ -1829,6 +1842,348 @@ def phase_cli_video(png: str) -> dict:
         shutil.rmtree(root)
 
 
+# ---------------------------------------------------------------------------
+# training: the flash kernel with a gradient, a small train step, the CLI
+
+# SDXL's level-1 self-attention at 512² (64x64 latents: 32x32 tokens), batch
+# 2 (instance + prior) x 10 heads: the training CLI's flash shape
+TRAIN_FLASH_SHAPE = (20, 1024, 1024, 64)
+TRAIN_REL_TOL = 1e-2  # dq/dk/dv against autograd of the fp32 plain version, of max |plain|
+# a small train step, bf16 on the card against fp32 on the CPU: the loss and
+# each gradient within 3x the plain bf16 path's distance from fp32
+TRAIN_RATIO_TOL = 3.0
+TRAIN_STEPS, TRAIN_SAVE_STEPS, TRAIN_TE_STEPS = 10, 5, 3
+TRAIN_CLASS_IMAGES = 2
+TRAIN_FUSION = dict(n_timesteps=4, t_cond=0.5, resampling_steps=0, jumping_steps=1)
+TRAIN_PROFILE_STEP = 6  # the micro step run under torch.profiler
+
+
+def phase_kernel_grad() -> dict:
+    """The bf16 flash kernel's forward and ``FlashAttention``'s math
+    backward at the training shape: dq/dk/dv against autograd of the plain
+    version in fp32, with the forward's, the backward's, the plain
+    version's and SDPA's forward+backward times and the backward's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from tweediemix_tpu_torch.ops.attention import FlashAttention, attention, math_attention
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    bh, s, _, dh = TRAIN_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, g = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    flash_attention.launches = 0
+    out = attention(q, k, v)
+    if flash_attention.launches != 1 or type(out.grad_fn).__name__ != "FlashAttentionBackward":
+        fail(f"a flash site with a gradient took {out.grad_fn} and {flash_attention.launches} launches")
+    grads = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention_reference(*ref_in)
+    ref_grads = torch.autograd.grad(ref, ref_in, g.float())
+    errs = {}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        if not torch.isfinite(got).all():
+            fail(f"non-finite {name}")
+        errs[name] = ((got.float() - want).abs().max() / want.abs().max()).item()
+    fwd_err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+
+    scale = dh**-0.5
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    fwd_ms = cuda_ms(lambda: flash_attention(qd, kd, vd, scale), 50)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 20)
+    fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(FlashAttention.apply(q, k, v, scale, False),
+                                                     (q, k, v), g), 20)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(math_attention(q, k, v, scale), (q, k, v), g), 10)
+    q4, k4, v4 = (t.detach()[None].requires_grad_() for t in (q, k, v))
+    library_ms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4),
+                                                     (q4, k4, v4), g[None]), 20)
+    # the backward recomputes q·kᵀ and runs four more products (dP, dV, dQ,
+    # dK): 10·S²·dh flops per row; it reads q, k, v and dO, writes dq, dk, dv
+    flops = 10.0 * bh * s * s * dh
+    nbytes = 2.0 * 7 * bh * s * dh
+    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+    row = dict(shape=list(TRAIN_FLASH_SHAPE), fwd_rel_err=fwd_err, rel_err=max(errs.values()),
+               grad_rel_err=errs, max_abs_err=max((a.float() - b).abs().max().item()
+                                                  for a, b in zip(grads, ref_grads)),
+               fwd_ms=fwd_ms, ms=bwd_ms, fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"flash_attention with a gradient {TRAIN_FLASH_SHAPE}: {json.dumps(row)}")
+    if not max(errs.values()) <= TRAIN_REL_TOL:
+        fail(f"FlashAttention's gradients disagree with the plain version's: {errs} "
+             f"(limit {TRAIN_REL_TOL} of max)")
+    return row
+
+
+def _train_models(device, dtype, seed):
+    """The small training config: a tiny UNet whose level-1 self-attention
+    reaches the kernel at 64x64 latents (1024 tokens, dh 64), remat and the
+    detach on, and the tiny towers."""
+    import torch
+
+    from tweediemix_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+    from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
+
+    torch.manual_seed(seed)  # drawn in fp32 on the CPU, then cast: one set of weights
+    ucfg = UNetConfig.tiny(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+                           cross_attention_dim=64, pooled_projection_dim=32,
+                           detach_first_token_kv=True, remat=True, dtype=dtype)
+    models = {"unet": UNet2DConditionModel(ucfg, device="cpu"),
+              "te1": CLIPTextModel(CLIPTextConfig.tiny(dtype=dtype), device="cpu"),
+              "te2": CLIPTextModel(CLIPTextConfig.tiny(projection_dim=32, dtype=dtype),
+                                   device="cpu")}
+    return {k: m.to(device) for k, m in models.items()}
+
+
+def phase_reference_train() -> dict:
+    """One train step (crossattn_kv with a modifier token, prior
+    preservation, remat) of the small config on the card in bf16 through
+    the kernel, against the same weights, batch, t and noise on the CPU in
+    fp32 and in bf16 (plain versions): the loss and every gradient within
+    ``TRAIN_RATIO_TOL`` x the plain bf16 path's distance from fp32, and the
+    kernel launched twice per self-attention site (remat)."""
+    import torch
+
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.schedulers.ddim import training_alphas_cumprod
+    from tweediemix_tpu_torch.training.custom_diffusion import TrainConfig
+    from tweediemix_tpu_torch.training.trainer import (
+        FullTrainState,
+        embedding_row_mask,
+        full_trainable_mask,
+        make_full_optimizer,
+        make_full_train_step,
+        promote_trainable_to_fp32,
+    )
+
+    gen = torch.Generator().manual_seed(5)
+    hw = 64
+    mask = torch.ones(2, hw, hw, 1)
+    mask[0, :10] = 0.0
+    ids = torch.full((2, 77), 999, dtype=torch.long)
+    ids[:, 0] = 998
+    ids[:, 1:5] = torch.tensor([[3, 7, 40, 41], [3, 40, 41, 42]])  # row 0 holds the modifier 7
+    batch = dict(latents=torch.randn((2, hw, hw, 4), generator=gen), mask=mask, ids_one=ids,
+                 ids_two=ids, is_prior=torch.tensor([0.0, 1.0]))
+    t = torch.tensor([250, 700])
+    noise = torch.randn((2, hw, hw, 4), generator=gen)
+    cfg = TrainConfig(learning_rate=1e-4)
+    tids = torch.tensor([[512.0, 512, 0, 0, 512, 512]])
+
+    def one_step(device, dtype):
+        models = _train_models(device, dtype, seed=3)
+        params = promote_trainable_to_fp32(models, full_trainable_mask(models, "crossattn_kv", True))
+        state = FullTrainState(params, make_full_optimizer(cfg, params))
+        rm = embedding_row_mask(1000, [7], device)
+        step = make_full_train_step(models["unet"], models["te1"], models["te2"], cfg,
+                                    training_alphas_cumprod().to(device), rm, rm, tids.to(device))
+        flash_attention.launches = 0
+        metrics = step(state, {k: v.to(device) for k, v in batch.items()},
+                       timesteps=t.to(device), noise=noise.to(device))
+        launches = flash_attention.launches
+        return (metrics["loss"].float().item(),
+                {k: g.float().cpu() for k, g in state.grads.items()}, launches, models["unet"].config)
+
+    loss32, grads32, _, _ = one_step("cpu", torch.float32)
+    loss16, grads16, _, _ = one_step("cpu", torch.bfloat16)
+    loss_card, grads_card, launches, ucfg = one_step("cuda", torch.bfloat16)
+    sites = flash_sites_per_call(ucfg, (hw, hw))
+
+    def dist(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    rows = {k: dict(card=dist(grads_card[k], grads32[k]), plain=dist(grads16[k], grads32[k]))
+            for k in grads32}
+    loss_card_err, loss_plain_err = abs(loss_card - loss32) / loss32, abs(loss16 - loss32) / loss32
+    worst = max(rows.items(), key=lambda kv: kv[1]["card"] / max(kv[1]["plain"], 1e-30))
+    stats = dict(loss=dict(cpu_fp32=loss32, cpu_bf16=loss16, card_bf16=loss_card),
+                 loss_rel_err=dict(card=loss_card_err, plain=loss_plain_err),
+                 grads=len(rows), worst_grad=dict(name=worst[0], **worst[1]), launches=launches,
+                 sites_per_call=sites)
+    log(f"reference train step, card bf16 vs CPU fp32 (and the plain bf16 path): {json.dumps(stats)}")
+    if sites == 0 or launches != 2 * sites:
+        fail(f"the small train step launched the kernel {launches} times, expected {2 * sites}")
+    if not (math.isfinite(loss_card) and loss_card_err <= TRAIN_RATIO_TOL * max(loss_plain_err, 1e-6)):
+        fail(f"train-step loss on the card {loss_card_err:.3e} from fp32, plain bf16 {loss_plain_err:.3e}")
+    for name, r in rows.items():
+        if not r["card"] <= TRAIN_RATIO_TOL * max(r["plain"], 1e-6):
+            fail(f"gradient {name} on the card is {r['card']:.3e} from fp32, more than "
+                 f"{TRAIN_RATIO_TOL} x the plain bf16 path's {r['plain']:.3e}")
+    return stats
+
+
+def _train_stdout(out: str) -> dict:
+    """The training CLI's losses and its timings line."""
+    losses = [float(line.rsplit("loss ", 1)[1]) for line in out.splitlines()
+              if line.startswith("step ") and ": loss " in line]
+    timings = json.loads(out.split("timings: ", 1)[1].splitlines()[0])
+    return dict(losses=losses, timings=timings)
+
+
+def phase_cli_train(root, fusion_argv, deltas) -> dict:
+    """The training CLI at full width from ``phase_cli``'s SDXL directory:
+    instance PNGs written by the port, class images generated into an empty
+    class directory, ``--with_prior_preservation --modifier_token <new1>
+    --gradient_checkpointing``, ``TRAIN_STEPS`` steps saving every
+    ``TRAIN_SAVE_STEPS``; then ``TRAIN_TE_STEPS`` steps with
+    ``--train_text_encoder --use_8bit_adam``; each run's kernel launches
+    counted, its trainable leaves moved and its frozen ones bit-equal; then
+    the fusion CLI samples a short run with the trained delta as the first
+    concept."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tweediemix_tpu_torch.cli import fusion_sampling, train
+    from tweediemix_tpu_torch.concepts.delta import is_cross_kv, load_reference_delta
+    from tweediemix_tpu_torch.fusion.sampler import FusionConfig
+    from tweediemix_tpu_torch.models.convert import checkpoint_shapes
+    from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.training import trainer
+    from tweediemix_tpu_torch.utils.image import read_png, write_png
+
+    inst, cls = os.path.join(root, "train_instance"), os.path.join(root, "train_class")
+    os.makedirs(inst)
+    rng = np.random.default_rng(7)
+    for i, (h, w) in enumerate([(640, 512), (512, 768), (600, 600)]):
+        write_png(os.path.join(inst, f"{i}.png"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    ucfg = UNetConfig.sdxl()
+    sites = flash_sites_per_call(ucfg, (64, 64))  # 512² → 64x64 latents
+    cross_kv = sorted(n for n in checkpoint_shapes(UNet2DConditionModel(ucfg, device="meta"))
+                      if is_cross_kv(n))
+    base = ["--model_dir", root, "--instance_data_dir", inst,
+            "--instance_prompt", "photo of a <new1> cat", "--class_data_dir", cls,
+            "--class_prompt", "photo of a cat", "--with_prior_preservation",
+            "--num_class_images", str(TRAIN_CLASS_IMAGES), "--sample_batch_size",
+            str(TRAIN_CLASS_IMAGES), "--modifier_token", "<new1>", "--gradient_checkpointing",
+            "--seed", "0"]
+    make_step = trainer.make_full_train_step
+    runs = {}
+    try:
+        for label, steps, extra in (
+                ("cd", TRAIN_STEPS, ["--save_steps", str(TRAIN_SAVE_STEPS)]),
+                ("te_8bit", TRAIN_TE_STEPS, ["--train_text_encoder", "--use_8bit_adam"])):
+            out = os.path.join(root, f"train_{label}")
+            kept = {}
+
+            def keep(unet, te1, te2, *args, **kw):
+                # every leaf's value before training, on the host (so the
+                # CLI's peak memory is its own), and one step profiled
+                named = {f"{k}/{n}": p for k, m in (("unet", unet), ("te1", te1), ("te2", te2))
+                         for n, p in m.named_parameters()}
+                kept["params"] = named
+                kept["before"] = {n: p.detach().to("cpu", copy=True) for n, p in named.items()}
+                step = make_step(unet, te1, te2, *args, **kw)
+                calls = []
+
+                def profiled(*a, **k):
+                    calls.append(1)
+                    if len(calls) != TRAIN_PROFILE_STEP:
+                        return step(*a, **k)
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        out = step(*a, **k)
+                        torch.cuda.synchronize()
+                    kept["profile"] = prof
+                    return out
+
+                return profiled
+
+            trainer.make_full_train_step = keep
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = 0
+            argv = base + ["--max_train_steps", str(steps), "--output_dir", out] + extra
+            rc, stdout, wall = run_cli(train.main, argv)
+            launches = flash_attention.launches
+            trainer.make_full_train_step = make_step
+            if rc != 0:
+                fail(f"the training CLI returned {rc}")
+            parsed = _train_stdout(stdout)
+            generated = TRAIN_CLASS_IMAGES if label == "cd" else 0
+            class_launches = 25 * sites * math.ceil(generated / TRAIN_CLASS_IMAGES)
+            per_step = (launches - class_launches) / steps
+            # every trainable UNet leaf and both token tables must move (a
+            # tower leaf the loss does not reach, such as tower 1's last
+            # layer, moves by its weight decay only, and a zero bias not at
+            # all); every frozen leaf must stay bit-equal
+            moved = frozen_changed = must_move = 0
+            for n, p in kept["params"].items():
+                changed = not torch.equal(p.detach().cpu(), kept["before"][n])
+                if not p.requires_grad:
+                    frozen_changed += changed
+                elif n.startswith("unet/") or n.endswith(trainer.TOKEN_TABLE):
+                    must_move += 1
+                    moved += changed
+            trainable = sum(p.requires_grad for p in kept["params"].values())
+            delta_path = os.path.join(out, f"delta-{steps}.bin")
+            st = load_reference_delta(delta_path)
+            stats = dict(gpu=gpu_name_and_power(), wall_s=wall, **parsed["timings"],
+                         losses=parsed["losses"], launches=launches, class_launches=class_launches,
+                         launches_per_step=per_step,
+                         max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         trainable=trainable, must_move=must_move, moved=moved,
+                         frozen_changed=frozen_changed,
+                         delta_bytes=os.path.getsize(delta_path), files=sorted(os.listdir(out)))
+            log(f"cli train {label}: {json.dumps(stats)}")
+            if "profile" in kept:
+                stats["profile"] = device_breakdown(kept["profile"], parsed["timings"]["step_s"] * 1e3)
+                log(f"profile train step {label} (step {TRAIN_PROFILE_STEP}, idle against the "
+                    f"median s/step): {json.dumps(stats['profile'])}")
+            del kept
+            torch.cuda.empty_cache()
+            if per_step != 2 * sites or launches != class_launches + 2 * sites * steps:
+                fail(f"the training CLI launched the kernel {launches} times ({per_step} per step), "
+                     f"expected {class_launches} + {2 * sites} x {steps}")
+            if not parsed["losses"] or not all(math.isfinite(x) for x in parsed["losses"]):
+                fail(f"training losses {parsed['losses']}")
+            if frozen_changed or moved != must_move:
+                fail(f"{moved} of {must_move} UNet leaves and token tables moved, "
+                     f"{frozen_changed} frozen leaves changed")
+            if sorted(st["unet"]) != cross_kv or list(st["modifier_token"]) != ["<new1>"]:
+                fail(f"delta keys: {len(st['unet'])} UNet entries, tokens {list(st['modifier_token'])}")
+            if ("text_encoder" in st) != (label == "te_8bit"):
+                fail(f"delta {delta_path} has keys {sorted(st)}")
+            if label == "cd":
+                want_files = sorted([f"delta-{TRAIN_SAVE_STEPS}.bin", f"delta-{steps}.bin", "resume"])
+                if stats["files"] != want_files or sorted(os.listdir(cls)) != [
+                        f"{i:05d}.png" for i in range(TRAIN_CLASS_IMAGES)]:
+                    fail(f"training outputs {stats['files']}, class images {os.listdir(cls)}")
+                ihdr, _ = read_png(os.path.join(cls, "00000.png"))
+                if (ihdr["width"], ihdr["height"]) != (512, 512):
+                    fail(f"class image {ihdr}")
+            runs[label] = stats
+
+        # the trained delta as the first concept of a short fusion sample
+        trained = os.path.join(root, "train_cd", f"delta-{TRAIN_STEPS}.bin")
+        argv = _flag(fusion_argv, "personal_checkpoint", "+".join([trained] + deltas[1:]))
+        tokens = argv[argv.index("--modifier_token") + 1].split("+")
+        argv = _flag(argv, "modifier_token", "+".join(["<new1>"] + tokens[1:]))
+        argv = _flag(argv, "output_path", os.path.join(root, "train_sample"))
+        for flag, value in TRAIN_FUSION.items():
+            argv = _flag(argv, flag, value)
+        fcfg = FusionConfig(**dict(CLI_FUSION, **TRAIN_FUSION))
+        expected = expected_flash_launches(UNetConfig.sdxl(concept_slots=4), fcfg)
+        flash_attention.launches = 0
+        rc, stdout, wall = run_cli(fusion_sampling.main, argv)
+        if rc != 0 or flash_attention.launches != expected:
+            fail(f"fusion CLI with the trained delta: rc {rc}, launches {flash_attention.launches} "
+                 f"(expected {expected})")
+        pngs = [f for f in os.listdir(os.path.join(root, "train_sample")) if f.endswith(".png")]
+        if len(pngs) != 1:
+            fail(f"fusion CLI with the trained delta wrote {pngs}")
+        _, pixels = read_png(os.path.join(root, "train_sample", pngs[0]))
+        if pixels.min() == pixels.max():
+            fail("every pixel of the trained-delta sample is equal")
+        runs["sample"] = dict(wall_s=wall, launches=flash_attention.launches,
+                              timings=json.loads(stdout.split("timings: ", 1)[1].splitlines()[0]))
+        log(f"cli train sample: {json.dumps(runs['sample'])}")
+        return runs
+    finally:
+        trainer.make_full_train_step = make_step
+
+
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("short_attention", ("short_attn_kernel",)),
     ("flash_attention_int8", ("flash_int8_wgmma_kernel", "absmax_kernel", "quantize_kernel<")),
@@ -1867,7 +2222,6 @@ def profile_fn(label, call) -> dict:
     top kernels; the device's idle share is taken against the mean wall time
     of the same call run without the profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -1884,6 +2238,16 @@ def profile_fn(label, call) -> dict:
             call()
             torch.cuda.synchronize()
             profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, **device_breakdown(prof, wall_ms))
+    log(f"profile {label}: {json.dumps(out)}")
+    return out
+
+
+def device_breakdown(prof, wall_ms: float) -> dict:
+    """A finished torch.profiler run's device time by kernel class, its top
+    kernels, and the device's idle share against ``wall_ms``."""
+    from torch.autograd import DeviceType
+
     by_name, by_class = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1895,14 +2259,12 @@ def profile_fn(label, call) -> dict:
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
     busy_ms = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:12]
-    out = dict(
-        wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, device_busy_ms=busy_ms,
+    return dict(
+        device_busy_ms=busy_ms,
         device_idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
         by_class_ms={k: round(v, 3) for k, v in sorted(by_class.items(), key=lambda i: -i[1])},
         top_kernels=[dict(name=n[:110], count=c, ms=round(t, 3)) for n, (c, t) in top],
     )
-    log(f"profile {label}: {json.dumps(out)}")
-    return out
 
 
 def main() -> None:
@@ -1916,8 +2278,10 @@ def main() -> None:
 
     phase_build()
     kernel_rows = phase_kernels()
+    grad_row = phase_kernel_grad()
     int8_rows = phase_kernels_int8()
     phase_reference()
+    reference_train = phase_reference_train()
     reference_w8a8 = phase_reference_w8a8()
     short_rows = phase_kernels_short()
     reference_video = phase_reference_video()
@@ -1950,7 +2314,14 @@ def main() -> None:
               "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
               kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"],
               cli_launches=cli["launches"], cli_sam_launches=cli["segmentation"]["fusion"]["launches"],
-              cli_video_launches=cli_runs["bf16"]["launches"]["flash"]),
+              cli_video_launches=cli_runs["bf16"]["launches"]["flash"],
+              train_launches=cli["train"]["cd"]["launches_per_step"],
+              train_te_launches=cli["train"]["te_8bit"]["launches_per_step"],
+              backward=dict(shape=grad_row["shape"], ms=grad_row["ms"],
+                            plain_ms=grad_row["plain_ms"], bound_ms=grad_row["bound_ms"],
+                            bound_by=grad_row["bound_by"], library_ms=grad_row["library_ms"],
+                            max_abs_err=grad_row["max_abs_err"], fwd_ms=grad_row["fwd_ms"],
+                            fwd_bwd_ms=grad_row["fwd_bwd_ms"])),
         entry("flash_attention_int8", "tweediemix_tpu_torch/csrc/flash_attention_int8.cu",
               "tweediemix_tpu/ops/flash_attention.py:113", w8a8["runs"][-1]["int8_launches"],
               int8_rows, wrapper_ms=int8_rows[0]["wrapper_ms"],
@@ -1968,6 +2339,7 @@ def main() -> None:
               cli_video_w8a8_launches=cli_runs["w8a8"]["launches"]["short"]),
     ]
     log(json.dumps(dict(main_path=main_path, cli_path=cli, reference_w8a8=reference_w8a8,
+                        reference_train=reference_train, kernel_grad=grad_row,
                         reference_segmentation=reference_segmentation,
                         w8a8_main_path=w8a8, reference_video=reference_video,
                         reference_video_w8a8=reference_video_w8a8, video_path=video,

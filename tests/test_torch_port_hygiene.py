@@ -34,7 +34,9 @@ def test_importing_every_port_module_loads_no_jax():
     for name in ("fusion.pipeline", "video.pipeline", "utils.tokenizer", "models.clip",
                  "concepts.delta", "segmentation", "cli.fusion_sampling", "segmentation.sam",
                  "segmentation.detector", "segmentation.lang_sam", "cli.segment", "utils.image",
-                 "cli.run_video"):
+                 "cli.run_video", "cli.train", "training.custom_diffusion", "training.trainer",
+                 "training.optim", "training.adam8bit", "training.lr_schedules", "training.data",
+                 "training.augment", "training.class_gen", "training.retrieve", "utils.logging"):
         assert f"tweediemix_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -140,6 +142,11 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
 
     with pytest.raises(RuntimeError, match="cuda"):
         run_video.main(["--model_preset", "tiny", "--image", "x.png", "--prompt", "a cat"])
+    from tweediemix_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--model_preset", "tiny", "--instance_data_dir", "inst",
+                    "--instance_prompt", "a <new1> cat"])
     from tweediemix_tpu_torch.cli import segment
     from tweediemix_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionModel
     from tweediemix_tpu_torch.segmentation import make_segment_fn
@@ -172,6 +179,27 @@ def test_video_cli_runs_without_pil(tmp_path, monkeypatch, capsys):
     assert rc == 0 and "saved" in capsys.readouterr().out
     header, frames = read_gif(out)
     assert frames.shape == (2, 32, 32, 3) and header["loop"] == 0
+
+
+def test_training_cli_runs_without_pil(tmp_path, monkeypatch, capsys):
+    """From PNG instance images to a delta with PIL unimportable, class
+    images generated and read back by the port itself."""
+    from tweediemix_tpu_torch.cli import train
+    from tweediemix_tpu_torch.utils.image import write_png
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    inst = tmp_path / "inst"
+    inst.mkdir()
+    write_png(str(inst / "0.png"), torch.randint(0, 256, (40, 30, 3), dtype=torch.uint8).numpy())
+    out = tmp_path / "ckpt"
+    rc = train.main(["--model_preset", "tiny", "--instance_data_dir", str(inst),
+                     "--instance_prompt", "a <new1> cat", "--class_data_dir", str(tmp_path / "cls"),
+                     "--class_prompt", "a cat", "--with_prior_preservation",
+                     "--num_class_images", "1", "--modifier_token", "<new1>",
+                     "--resolution", "32", "--max_train_steps", "2", "--output_dir", str(out)],
+                    device="cpu")
+    assert rc == 0 and "saved" in capsys.readouterr().out
+    assert (out / "delta-2.bin").exists() and (tmp_path / "cls" / "00000.png").exists()
 
 
 def test_package_exports_version_and_ddim_table():

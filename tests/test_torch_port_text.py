@@ -221,5 +221,17 @@ def test_clip_config_presets_match_jax():
         for d in (want, got):
             d.pop("dtype")
         assert got == want, name
-    with pytest.raises(NotImplementedError, match="remat"):
-        port_clip.CLIPTextConfig.tiny(remat=True)
+    # remat (what --train_text_encoder takes beside the UNet's) builds and
+    # computes what the plain tower computes, gradients included
+    torch.manual_seed(0)
+    plain = port_clip.CLIPTextModel(port_clip.CLIPTextConfig.tiny(), device="cpu")
+    remat = port_clip.CLIPTextModel(port_clip.CLIPTextConfig.tiny(remat=True), device="cpu")
+    remat.load_state_dict(plain.state_dict())
+    ids = torch.tensor([[998, 5, 17, 999] + [999] * 73])
+    outs = [m(ids) for m in (plain, remat)]
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-6)
+    grads = [torch.autograd.grad(o[0].square().sum() + o[2].sum(), list(m.parameters()))
+             for o, m in zip(outs, (plain, remat))]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)

@@ -155,10 +155,26 @@ def test_converter_merges_self_attention_qkv():
 @pytest.mark.parametrize("option", [dict(quant="int4"), dict(remat=True),
                                     dict(detach_first_token_kv=True)])
 def test_unported_options_raise(option):
-    """The training options are not ported yet; quant takes only the JAX
-    package's modes ("int8", "int8_conv": tests/test_torch_port_quant.py)."""
-    with pytest.raises(ValueError if "quant" in option else NotImplementedError):
-        port_unet2d.UNetConfig.micro(**option)
+    """quant takes only the JAX package's modes ("int8", "int8_conv":
+    tests/test_torch_port_quant.py) and raises on any other; the training
+    options are ported: they build and run, with and without a gradient
+    (their gradients against the JAX package:
+    tests/test_torch_port_training.py)."""
+    if "quant" in option:
+        with pytest.raises(ValueError):
+            port_unet2d.UNetConfig.micro(**option)
+        return
+    model, params, port, inputs = _case("micro", option)
+    assert getattr(port.config, next(iter(option)))
+    x, ctx, pooled, tids, idx = _port_inputs(inputs)
+    with torch.no_grad():
+        plain = port(x, 501, ctx, pooled, tids, idx)
+    want = model.apply({"params": params}, *inputs[:1], jnp.int32(501), *inputs[1:])
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), atol=MODEL_TOL, rtol=MODEL_TOL)
+    out = port(x, 501, ctx, pooled, tids, idx)
+    torch.testing.assert_close(out.detach(), plain, rtol=0, atol=1e-6)
+    out.square().sum().backward()
+    assert all(p.grad is not None for p in port.parameters())
 
 
 def test_sdxl_structure_matches_jax():

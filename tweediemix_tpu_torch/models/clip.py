@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tweediemix_tpu_torch.device import resolve_device
 
@@ -45,12 +46,11 @@ class CLIPTextConfig:
     projection_dim: Optional[int] = None
     eos_token_id: int = 49407
     dtype: torch.dtype = torch.float32
-    # not ported yet: rematerialisation for --train_text_encoder raises when set
+    # training: recompute each encoder layer in the backward (what
+    # --train_text_encoder needs beside the UNet with --gradient_checkpointing)
     remat: bool = False
 
     def __post_init__(self):
-        if self.remat:
-            raise NotImplementedError("CLIPTextConfig.remat (training) is not ported to the torch package yet")
         if self.hidden_act not in ("quick_gelu", "gelu"):
             raise ValueError(f"unknown hidden_act {self.hidden_act!r}")
 
@@ -202,11 +202,12 @@ class CLIPTextModel(nn.Module):
         pos = tm.embeddings.position_embedding.weight[:t]
         x = tm.embeddings.token_embedding(input_ids) + pos
         causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+        remat = cfg.remat and torch.is_grad_enabled()
         penultimate = x
         for i, layer in enumerate(tm.encoder.layers):
             if i == cfg.num_layers - 1:
                 penultimate = x
-            x = layer(x, causal)
+            x = checkpoint(layer, x, causal, use_reentrant=False) if remat else layer(x, causal)
         final = tm.final_layer_norm(x)
         penultimate_ln = tm.final_layer_norm(penultimate)
         # the first EOS: the count of positions before it (t where there is none)

@@ -25,6 +25,11 @@ the concept extensions of the JAX package:
   ``time_emb_proj``, ``conv_shortcut``, ``conv_in``/``conv_out``, the K/V
   stacks, the embeddings. Each ``QLinear`` is told its JAX site key
   (``quant_site``), under which static activation scales are stored.
+* Training: ``detach_first_token_kv`` stops the gradient through the first
+  context token's cross-attention K/V (the Custom-Diffusion trick), and
+  ``remat`` recomputes each resnet and transformer block in the backward
+  (``torch.utils.checkpoint``); neither changes a parameter's name or
+  shape.
 
 The public forward takes and returns NHWC latents [B, h, w, 4] like the JAX
 model; inside, activations are NCHW.
@@ -39,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.models.embeddings import TimestepEmbedding, timestep_embedding
@@ -75,8 +81,9 @@ class UNetConfig:
     concept_slots: int = 0
     lora_slots: int = 0
     lora_rank: int = 4
-    # not ported yet: training (detach_first_token_kv, remat) raises when set
+    # training: stop the gradient through the first context token's K/V
     detach_first_token_kv: bool = False
+    # training: recompute resnet/transformer blocks in the backward
     remat: bool = False
     # W8A8 serving: None, "int8" (transformer matmuls) or "int8_conv" (also
     # the resnet and resampler 3x3 convs)
@@ -84,9 +91,6 @@ class UNetConfig:
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        for name in ("detach_first_token_kv", "remat"):
-            if getattr(self, name):
-                raise NotImplementedError(f"UNetConfig.{name} is not ported to the torch package yet")
         if self.quant is not None and self.quant not in QUANT_MODES:
             raise ValueError(f"UNetConfig.quant must be None or one of {QUANT_MODES}, got {self.quant!r}")
 
@@ -169,11 +173,13 @@ class Attention(nn.Module):
         lora_slots: int = 0,
         lora_rank: int = 4,
         quant: Optional[str] = None,
+        detach_first_token_kv: bool = False,
     ):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.is_cross = cross_attention_dim is not None
+        self.detach_first_token_kv = detach_first_token_kv and self.is_cross
         ctx_dim = cross_attention_dim if self.is_cross else query_dim
         self.stacked = bool(concept_slots) and self.is_cross
         self.lora_slots = lora_slots
@@ -218,6 +224,9 @@ class Attention(nn.Module):
         if self.lora_slots:
             k = k + self.lora("to_k", ctx, idx)
             v = v + self.lora("to_v", ctx, idx)
+        if self.detach_first_token_kv:
+            k = torch.cat([k[:, :1].detach(), k[:, 1:]], dim=1)
+            v = torch.cat([v[:, :1].detach(), v[:, 1:]], dim=1)
         return k, v
 
     def forward(self, x, ctx=None, concept_idx=None, kv=None):
@@ -268,14 +277,16 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim, heads, dim_head, cross_attention_dim,
-                 concept_slots=0, lora_slots=0, lora_rank=4, quant=None):
+                 concept_slots=0, lora_slots=0, lora_rank=4, quant=None,
+                 detach_first_token_kv=False):
         super().__init__()
         kw = dict(lora_slots=lora_slots, lora_rank=lora_rank, quant=quant)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads, dim_head, **kw)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim,
-                               concept_slots=concept_slots, **kw)
+                               concept_slots=concept_slots,
+                               detach_first_token_kv=detach_first_token_kv, **kw)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim, quant)
 
@@ -290,14 +301,16 @@ class Transformer2DModel(nn.Module):
     ``use_linear_projection=True``)."""
 
     def __init__(self, channels, heads, dim_head, num_layers, cross_attention_dim,
-                 norm_num_groups, concept_slots=0, lora_slots=0, lora_rank=4, quant=None):
+                 norm_num_groups, concept_slots=0, lora_slots=0, lora_rank=4, quant=None,
+                 detach_first_token_kv=False):
         super().__init__()
         inner = heads * dim_head
         self.norm = nn.GroupNorm(norm_num_groups, channels, eps=1e-6)
         self.proj_in = linear(channels, inner, quant=quant)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
-                                  concept_slots, lora_slots, lora_rank, quant)
+                                  concept_slots, lora_slots, lora_rank, quant,
+                                  detach_first_token_kv)
             for _ in range(num_layers)
         ])
         self.proj_out = linear(inner, channels, quant=quant)
@@ -399,7 +412,7 @@ class UNet2DConditionModel(nn.Module):
                 channels, heads, cfg.block_out_channels[level] // heads,
                 cfg.transformer_layers_per_block[level], cfg.cross_attention_dim,
                 cfg.norm_num_groups, cfg.concept_slots, cfg.lora_slots, cfg.lora_rank,
-                cfg.quant,
+                cfg.quant, cfg.detach_first_token_kv,
             )
 
         n_levels = len(cfg.block_out_channels)
@@ -475,15 +488,21 @@ class UNet2DConditionModel(nn.Module):
 
         ctx = encoder_hidden_states.to(dtype)
         x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(block, *args):
+            if remat:
+                return checkpoint(block, *args, use_reentrant=False)
+            return block(*args)
 
         def attend(block, j, name, x):
             kv = None if cross_kv is None else cross_kv[name]
-            return block.attentions[j](x, ctx, concept_idx, kv=kv)
+            return run(block.attentions[j], x, ctx, concept_idx, kv)
 
         res_stack = [x]
         for level, block in enumerate(self.down_blocks):
             for j, resnet in enumerate(block.resnets):
-                x = resnet(x, temb)
+                x = run(resnet, x, temb)
                 if len(block.attentions):
                     x = attend(block, j, f"down_blocks_{level}_attentions_{j}", x)
                 res_stack.append(x)
@@ -491,13 +510,13 @@ class UNet2DConditionModel(nn.Module):
                 x = sampler(x)
                 res_stack.append(x)
 
-        x = self.mid_block.resnets[0](x, temb)
+        x = run(self.mid_block.resnets[0], x, temb)
         x = attend(self.mid_block, 0, "mid_block_attentions_0", x)
-        x = self.mid_block.resnets[1](x, temb)
+        x = run(self.mid_block.resnets[1], x, temb)
 
         for i, block in enumerate(self.up_blocks):
             for j, resnet in enumerate(block.resnets):
-                x = resnet(torch.cat([x, res_stack.pop()], dim=1), temb)
+                x = run(resnet, torch.cat([x, res_stack.pop()], dim=1), temb)
                 if len(block.attentions):
                     x = attend(block, j, f"up_blocks_{i}_attentions_{j}", x)
             for sampler in block.upsamplers:

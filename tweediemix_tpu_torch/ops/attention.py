@@ -11,7 +11,11 @@ its plain version on the CPU). ``TWEEDIEMIX_SHORT_ATTENTION=1``, read the
 same way, sends short self-attention (the video UNet's frame axis: q and k of
 one shape, S <= 32, dh in {32, 64, 128}) to the short-sequence kernel, or to
 its plain version on the CPU; it stays opt-in, as in the JAX package.
-Cross-attention (77 keys) and every other site take the math path, which
+Where an input requires a gradient (training), a flash site runs through
+``FlashAttention``, an autograd function whose forward is the same kernel
+call and whose backward recomputes the math path's vjp in chunks of BH rows,
+as the JAX package's ``custom_vjp`` does; inference calls the kernel
+directly. Cross-attention (77 keys) and every other site take the math path, which
 switches to query chunks when the fp32 score tensor would pass 256 MiB. Head
 split/merge happens here, so model code only sees [B, S, D].
 """
@@ -62,15 +66,50 @@ def chunked_attention(q, k, v, scale: float, chunk: int) -> torch.Tensor:
     )
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with a math backward (``_flash``/``_flash_bwd`` of
+    ``tweediemix_tpu/ops/attention.py``): the forward is ``flash_attention``
+    (the bf16 kernel, or the int8 core under ``int8_qkpv``, whose float
+    backward is then a straight-through estimate); the backward recomputes
+    ``math_attention``'s vjp over chunks of BH rows, so the fp32 score
+    tensor of one chunk stays under ``SCORE_BYTES_CAP``. No backward kernel
+    is written: the JAX package's backward is plain XLA too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, int8_qkpv: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_attention(q, k, v, scale, int8_qkpv=int8_qkpv)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        bh, sq, _ = q.shape
+        rows = max(1, SCORE_BYTES_CAP // (4 * sq * k.shape[1]))
+        grads = ([], [], [])
+        for start in range(0, bh, rows):
+            part = slice(start, start + rows)
+            with torch.enable_grad():
+                qc, kc, vc = (t[part].detach().requires_grad_() for t in (q, k, v))
+                out = math_attention(qc, kc, vc, ctx.scale)
+            for acc, d in zip(grads, torch.autograd.grad(out, (qc, kc, vc), g[part])):
+                acc.append(d)
+        return tuple(torch.cat(d) for d in grads) + (None, None)
+
+
 def attention(q, k, v, scale: float | None = None) -> torch.Tensor:
-    """Scaled dot-product attention over [BH, S, dh] tensors."""
+    """Scaled dot-product attention over [BH, S, dh] tensors. A flash site
+    whose inputs require a gradient goes through ``FlashAttention``."""
     bh, sq, dh = q.shape
     sk = k.shape[1]
     if scale is None:
         scale = dh**-0.5
     if uses_flash(sq, sk, dh):
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale,
-                               int8_qkpv=os.environ.get("TWEEDIEMIX_FLASH_INT8", "0") == "1")
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        int8_qkpv = os.environ.get("TWEEDIEMIX_FLASH_INT8", "0") == "1"
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttention.apply(q, k, v, scale, int8_qkpv)
+        return flash_attention(q, k, v, scale, int8_qkpv=int8_qkpv)
     score_bytes = 4 * bh * sq * sk
     if score_bytes > SCORE_BYTES_CAP:
         chunk = min(max(1, SCORE_BYTES_CAP // (4 * bh * sk)), sq)

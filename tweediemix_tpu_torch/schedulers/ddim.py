@@ -129,3 +129,24 @@ def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float = 0.0)
     std_cfg = noise_cfg.std(dim=dims, keepdim=True, correction=0)
     rescaled = noise_cfg * (std_text / std_cfg)
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
+
+
+def add_noise(x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor,
+              alphas_cumprod_unshifted: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) for training, per row of ``t``
+    (diffusers' ``scheduler.add_noise``, on the unshifted table)."""
+    at = alphas_cumprod_unshifted.to(x0.device)[t].float()
+    at = at.reshape(at.shape + (1,) * (x0.ndim - at.ndim))
+    return torch.sqrt(at) * x0 + torch.sqrt(1.0 - at) * noise
+
+
+def training_alphas_cumprod(
+    num_train_timesteps: int = 1000,
+    beta_start: float = 0.00085,
+    beta_end: float = 0.012,
+    schedule: str = "scaled_linear",
+) -> torch.Tensor:
+    """The unshifted ā table (index t is the original t) for the training
+    loss, fp32."""
+    betas = make_betas(num_train_timesteps, beta_start, beta_end, schedule)
+    return torch.from_numpy(np.cumprod(1.0 - betas).astype(np.float32))

@@ -25,7 +25,9 @@ JAX or of the JAX package. Phases:
    against the plain bf16 path's on the CPU; then small W8A8 UNets
    ("int8" and "int8_conv", the int8 attention core on) the same way, and
    small W8A8 UNet3Ds (both knobs on) likewise; the tiny SAM and OWL-ViT
-   detector on the card against the CPU in fp32; one train step of a small
+   detector, and the tiny GroundingDINO, on the card against the CPU in
+   fp32 (finite logits, the -inf pattern and the top queries); one train
+   step of a small
    config (remat, a modifier token, prior preservation) on the card in bf16
    against the CPU in fp32, held against the plain bf16 path's distance;
 4. main path: the SDXL multi-concept fusion sample at full width (UNet
@@ -53,7 +55,14 @@ JAX or of the JAX package. Phases:
    per concept from that PNG, and the fusion CLI reads them back through
    ``--mask_dir`` for a 4-step sample; SAM's encoder, the detector and the
    decoder are timed, and one global and one windowed ViT-H block are held
-   to fp32 on the CPU; then, from the same directory, the training CLI
+   to fp32 on the CPU; then GroundingDINO (``phase_cli_dino``): a Swin-B
+   ``.pth`` of seeded random weights in the original repo's layout (its
+   232,313,216 parameters held) and a synthetic 30522-line ``vocab.txt``
+   are written, the fusion CLI runs with ``--detector dino`` and ``auto``
+   (launches counted, one PNG each), the segment CLI with ``dino``, one
+   ``DinoDetector`` call is timed by stage and profiled, and a Swin-B
+   block, an encoder layer and a decoder layer are held to fp32 on the
+   CPU; then, from the same directory, the training CLI
    (``phase_cli_train``): instance PNGs, class images sampled into an empty
    directory, 10 steps at 512² with prior preservation, a modifier token and
    remat (saving at 5), then 3 steps with ``--train_text_encoder
@@ -96,6 +105,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1098,6 +1108,185 @@ def write_owlvit_dir(root, seed, device) -> dict:
                 port_params=sum(t.numel() for t in det.state_dict().values()), bytes=written)
 
 
+# bert-base-uncased's ids of the tokens GroundingDINO's phrase masks key on
+# ([CLS], [SEP], ".", "?") and of the other special tokens
+BERT_SPECIAL_IDS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103,
+                    ".": 1012, "?": 1029}
+BERT_WORDS = ("a", "cat", "dog", "photo", "of", "and", "the", "running", "mountain", "background",
+              "run", "##ning", "##s", ",", "!")
+# GroundingDINO Swin-B's parameters (jax.eval_shape of the JAX package's tree)
+DINO_SWINB_PARAMS = 232_313_216
+
+
+def write_bert_vocab(path, size: int) -> int:
+    """A synthetic uncased WordPiece ``vocab.txt`` of ``size`` lines:
+    ``BERT_SPECIAL_IDS`` at bert-base-uncased's ids (else every phrase mask
+    would be the identity), ``BERT_WORDS`` from id 1100 on, ``[unusedN]``
+    elsewhere. Returns its bytes."""
+    lines = [f"[unused{i}]" for i in range(size)]
+    for token, i in BERT_SPECIAL_IDS.items():
+        lines[i] = token
+    for i, word in enumerate(BERT_WORDS):
+        lines[1100 + i] = word
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return os.path.getsize(path)
+
+
+def _dino_original_name(name: str) -> tuple:
+    """A port ``GroundingDino`` name → (its original-layout name, the q/k/v
+    part it fills of a merged tensor or None)."""
+    m = re.match(r"backbone\.layers_(\d+)_blocks_(\d+)\.(.*)", name)
+    if m:
+        base, rest = f"backbone.0.layers.{m.group(1)}.blocks.{m.group(2)}.", m.group(3)
+        q = re.match(r"attention\.(query|key|value)\.(weight|bias)$", rest)
+        if q:
+            return base + f"attn.qkv.{q.group(2)}", q.group(1)
+        for old, new in (("layernorm_before.", "norm1."), ("layernorm_after.", "norm2."),
+                         ("attention.out.", "attn.proj."),
+                         ("attention.relative_position_bias_table", "attn.relative_position_bias_table"),
+                         ("intermediate.", "mlp.fc1."), ("output.", "mlp.fc2.")):
+            if rest.startswith(old):
+                return base + new + rest[len(old):], None
+    m = re.match(r"backbone\.norm_stage(\d)\.(.*)", name)
+    if m:
+        return f"backbone.0.norm{int(m.group(1)) - 1}.{m.group(2)}", None
+    m = re.match(r"backbone\.layers_(\d+)_downsample\.(.*)", name)
+    if m:
+        return f"backbone.0.layers.{m.group(1)}.downsample.{m.group(2)}", None
+    for old, new in (("backbone.patch_embed.", "backbone.0.patch_embed.proj."),
+                     ("backbone.patch_norm.", "backbone.0.patch_embed.norm."),
+                     ("text_projection.", "feat_map."), ("level_embed", "transformer.level_embed"),
+                     ("query_position_embeddings.", "transformer.tgt_embed."),
+                     ("enc_output.", "transformer.enc_output."),
+                     ("enc_output_norm.", "transformer.enc_output_norm."),
+                     ("decoder_layer_norm.", "transformer.decoder.norm.")):
+        if name.startswith(old):
+            return new + name[len(old):], None
+    for old, new in (("encoder_output_bbox_embed.", "transformer.enc_out_bbox_embed."),
+                     ("reference_points_head.", "transformer.decoder.ref_point_head.")):
+        if name.startswith(old):
+            return new + re.sub(r"layers_(\d+)", r"layers.\1", name[len(old):]), None
+    m = re.match(r"input_proj_(\d+)_(conv|norm)\.(.*)", name)
+    if m:
+        return f"input_proj.{m.group(1)}.{0 if m.group(2) == 'conv' else 1}.{m.group(3)}", None
+    m = re.match(r"text_backbone\.(.*)", name)
+    if m:
+        rest = m.group(1)
+        if rest in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+            return f"bert.embeddings.{rest}.weight", None
+        if rest.startswith("embeddings_norm."):
+            return "bert.embeddings.LayerNorm." + rest[len("embeddings_norm."):], None
+        m = re.match(r"layer_(\d+)\.(\w+)\.(weight|bias)$", rest)
+        part = {"query": "attention.self.query", "key": "attention.self.key",
+                "value": "attention.self.value", "attn_out": "attention.output.dense",
+                "attn_norm": "attention.output.LayerNorm", "intermediate": "intermediate.dense",
+                "output": "output.dense", "output_norm": "output.LayerNorm"}[m.group(2)]
+        return f"bert.encoder.layer.{m.group(1)}.{part}.{m.group(3)}", None
+    m = re.match(r"encoder_layers_(\d+)\.(\w+)\.(.*)", name)
+    if m:
+        i, sub, rest = m.groups()
+        if sub == "deformable_layer":
+            for old, new in (("fc1.", "linear1."), ("fc2.", "linear2."),
+                             ("self_attn_layer_norm.", "norm1."), ("final_layer_norm.", "norm2.")):
+                rest = new + rest[len(old):] if rest.startswith(old) else rest
+            return f"transformer.encoder.layers.{i}.{rest}", None
+        if sub == "text_enhancer_layer":
+            q = re.match(r"self_attn\.(query|key|value)\.(weight|bias)$", rest)
+            if q:
+                return f"transformer.encoder.text_layers.{i}.self_attn.in_proj_{q.group(2)}", q.group(1)
+            for old, new in (("fc1.", "linear1."), ("fc2.", "linear2."),
+                             ("layer_norm_before.", "norm1."), ("layer_norm_after.", "norm2.")):
+                rest = new + rest[len(old):] if rest.startswith(old) else rest
+            return f"transformer.encoder.text_layers.{i}.{rest}", None
+        for old, new in (("vision_param", "gamma_v"), ("text_param", "gamma_l"),
+                         ("layer_norm_vision.", "layer_norm_v."), ("layer_norm_text.", "layer_norm_l."),
+                         ("attn.values_vision_proj.", "attn.values_v_proj."),
+                         ("attn.values_text_proj.", "attn.values_l_proj."),
+                         ("attn.out_vision_proj.", "attn.out_v_proj."),
+                         ("attn.out_text_proj.", "attn.out_l_proj."),
+                         ("attn.vision_proj.", "attn.v_proj."), ("attn.text_proj.", "attn.l_proj.")):
+            rest = new + rest[len(old):] if rest.startswith(old) else rest
+        return f"transformer.encoder.fusion_layers.{i}.{rest}", None
+    m = re.match(r"decoder_layers_(\d+)\.(.*)", name)
+    if m:
+        i, rest = m.groups()
+        q = re.match(r"(self_attn|encoder_attn_text)\.(query|key|value)\.(weight|bias)$", rest)
+        if q:
+            mod = "self_attn" if q.group(1) == "self_attn" else "ca_text"
+            return f"transformer.decoder.layers.{i}.{mod}.in_proj_{q.group(3)}", q.group(2)
+        for old, new in (("encoder_attn_text.", "ca_text."),
+                         ("encoder_attn_text_layer_norm.", "catext_norm."),
+                         ("encoder_attn_layer_norm.", "norm1."), ("encoder_attn.", "cross_attn."),
+                         ("self_attn_layer_norm.", "norm2."), ("final_layer_norm.", "norm3."),
+                         ("fc1.", "linear1."), ("fc2.", "linear2.")):
+            if rest.startswith(old):
+                rest = new + rest[len(old):]
+                break
+        return f"transformer.decoder.layers.{i}.{rest}", None
+    raise ValueError(f"{name}: no original GroundingDINO name")
+
+
+def dino_original_state_dict(module) -> dict:
+    """A ``GroundingDino``'s tensors in the original groundingdino repo's
+    layout (the reference's ``groundingdino_swinb_cogcoor.pth`` holds it
+    under ``"model"``), the inverse of ``load_dino``'s reading of it: each
+    Swin block's q/k/v merged into ``attn.qkv``, the text and decoder
+    attentions' into ``in_proj_weight``/``in_proj_bias``, the shared box
+    head as every decoder layer's ``bbox_embed.{i}`` and
+    ``transformer.decoder.bbox_embed.{i}``, and the buffers upstream holds
+    (each block's ``relative_position_index``, BERT's ``position_ids``)."""
+    import torch
+
+    from tweediemix_tpu_torch.models.swin import _rel_pos_index
+
+    cfg = module.config
+    out, merged = {}, {}
+    for name, t in module.state_dict().items():
+        if name.startswith("bbox_embed."):
+            continue
+        orig, part = _dino_original_name(name)
+        if part is None:
+            out[orig] = t
+        else:
+            merged.setdefault(orig, {})[part] = t
+    for orig, parts in merged.items():
+        out[orig] = torch.cat([parts[p] for p in ("query", "key", "value")], dim=0)
+    for name, t in module.bbox_embed.state_dict().items():
+        leaf = re.sub(r"layers_(\d+)", r"layers.\1", name)
+        for i in range(cfg.decoder_layers):
+            out[f"bbox_embed.{i}.{leaf}"] = t
+            out[f"transformer.decoder.bbox_embed.{i}.{leaf}"] = t
+    index = torch.from_numpy(_rel_pos_index(cfg.swin.window_size))
+    for i, depth in enumerate(cfg.swin.depths):
+        for j in range(depth):
+            out[f"backbone.0.layers.{i}.blocks.{j}.attn.relative_position_index"] = index
+    out["bert.embeddings.position_ids"] = torch.arange(cfg.text.max_position_embeddings)[None]
+    return out
+
+
+def write_dino_checkpoint(path, config, seed, device) -> dict:
+    """A GroundingDINO checkpoint of seeded random weights
+    (``lang_sam.seeded_init_``: norms 1 and 0, matrices N(0, 1/fan_in),
+    tables and layer scales N(0, 0.02²)) in the original groundingdino
+    repo's layout (``dino_original_state_dict``: merged q/k/v, the
+    box head under every decoder layer, the buffers), saved as upstream
+    ships it (``{"model": state_dict}``), with a synthetic ``vocab.txt`` of
+    ``config.text.vocab_size`` lines beside it."""
+    import torch
+
+    from tweediemix_tpu_torch.models.dino import GroundingDino
+    from tweediemix_tpu_torch.segmentation.lang_sam import seeded_init_
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = seeded_init_(GroundingDino(config, device=device), gen)
+    state = {k: v.cpu() for k, v in dino_original_state_dict(model).items()}
+    torch.save({"model": state}, path)
+    vocab_bytes = write_bert_vocab(os.path.join(os.path.dirname(path), "vocab.txt"), config.text.vocab_size)
+    return dict(params=sum(t.numel() for t in model.parameters()), file_tensors=len(state),
+                bytes=os.path.getsize(path) + vocab_bytes)
+
+
 def run_cli(main, argv):
     """``main(argv, device="cuda")`` with its standard output captured:
     (return code, output, wall seconds ending in a device synchronise)."""
@@ -1275,15 +1464,211 @@ def phase_cli_segmentation(root, argv, expected) -> dict:
     log(f"segmentation layers: {json.dumps(layers)}")
     del ls, sam, feats
     torch.cuda.empty_cache()
+    dino = phase_cli_dino(root, argv, expected, sam_path)
     return dict(gpu=gpu_name_and_power(), write_s=write_s, sam_checkpoint=sam_ckpt,
-                detector_checkpoint=det_ckpt, fusion=fusion, files=files, layers=layers)
+                detector_checkpoint=det_ckpt, fusion=fusion, files=files, layers=layers, dino=dino)
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float().cpu() - want).abs().max() / want.abs().max()).item()
+
+
+def phase_cli_dino(root, argv, expected, sam_path) -> dict:
+    """GroundingDINO in both CLIs at full width, from the SDXL directory and
+    the SAM ViT-H checkpoint of ``phase_cli_segmentation``: a Swin-B
+    GroundingDINO ``.pth`` of seeded random weights in the original repo's
+    layout (its parameters held to ``DINO_SWINB_PARAMS``) and a synthetic
+    30522-line ``vocab.txt`` are written under ``root``; the fusion CLI runs
+    with ``--detector_dir`` on it and ``--detector dino``, then ``auto``,
+    each to one 1024² PNG with the bf16 kernel's launches counted; the
+    segment CLI writes a mask PNG per concept with ``--detector dino``.
+    Then one ``DinoDetector`` call is timed with CUDA events, split into
+    backbone (and level projections), text, encoder and decoder, with its
+    peak memory, and one Swin-B stage-3 block, one encoder layer and one
+    decoder layer from the checkpoint are held to the CPU in fp32."""
+    import torch
+
+    from tweediemix_tpu_torch.cli import fusion_sampling
+    from tweediemix_tpu_torch.models.dino import DinoConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.utils.image import read_png
+
+    cfg = DinoConfig.swin_b()
+    det_dir = os.path.join(root, "groundingdino")
+    os.makedirs(det_dir)
+    pth = os.path.join(det_dir, "groundingdino_swinb_cogcoor.pth")
+    t0 = time.perf_counter()
+    ckpt = write_dino_checkpoint(pth, cfg, seed=5, device="cuda")
+    write_s = time.perf_counter() - t0
+    if ckpt["params"] != DINO_SWINB_PARAMS:
+        fail(f"GroundingDINO Swin-B holds {ckpt['params']} parameters, expected {DINO_SWINB_PARAMS}")
+    torch.cuda.empty_cache()
+    log(f"dino: wrote {json.dumps(ckpt)} in {write_s:.1f} s")
+
+    # 1. the fusion CLI with GroundingDINO asked for, then found by auto
+    runs = {}
+    for detector in ("dino", "auto"):
+        out = os.path.join(root, f"out_{detector}")
+        seg_argv = _flag(argv, "output_path", out) + [
+            "--sam_checkpoint", sam_path, "--detector_dir", pth, "--detector", detector]
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        rc, text, wall = run_cli(fusion_sampling.main, seg_argv)
+        launches = flash_attention.launches
+        if rc != 0:
+            fail(f"the CLI with --detector {detector} returned {rc}")
+        if launches != expected:
+            fail(f"flash_attention launched {launches} times with --detector {detector}, expected {expected}")
+        timings = json.loads(text.split("timings: ", 1)[1].splitlines()[0])
+        seg = json.loads(text.split("segmentation: ", 1)[1].splitlines()[0])
+        if [c for c, _ in seg["top_scores"]] != SEG_CONCEPTS.split("+") or len(seg["mask_areas"]) != 2:
+            fail(f"--detector {detector}: segmentation line {seg}")
+        if not all(0.0 <= v <= 1.0 for v in seg["mask_areas"] + [s for _, s in seg["top_scores"]]):
+            fail(f"--detector {detector}: scores or mask areas outside [0, 1]: {seg}")
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        if len(pngs) != 1:
+            fail(f"--detector {detector} wrote {pngs}, expected one PNG")
+        header, pixels = read_png(os.path.join(out, pngs[0]))
+        if ((header["width"], header["height"], header["color_type"]) != (1024, 1024, 2)
+                or pixels.min() == pixels.max()):
+            fail(f"--detector {detector}: PNG {header}, pixels {pixels.min()}..{pixels.max()}")
+        runs[detector] = dict(cli_wall_s=wall, load_s=timings["load_s"], seg_load_s=timings["seg_load_s"],
+                              build_s=timings["build_s"], s_per_image=timings["sample_s"],
+                              segment_s=timings["segment_s"], launches=launches,
+                              max_memory_gib=torch.cuda.max_memory_allocated() / 2**30, **seg)
+        log(f"dino fusion cli --detector {detector}: {json.dumps(runs[detector])}")
+    image_png = os.path.join(root, "out_dino", sorted(os.listdir(os.path.join(root, "out_dino")))[0])
+    segment_cli = dino_segment_cli(os.path.join(root, "masks_dino"), image_png, sam_path, pth)
+    layers, blocks = dino_layers(sam_path, pth)
+    return dict(write_s=write_s, checkpoint=ckpt, fusion=runs, segment_cli=segment_cli, layers=layers,
+                blocks_card_vs_cpu=blocks)
+
+
+def dino_segment_cli(masks_dir, image_png, sam_path, pth) -> dict:
+    """The segment CLI with ``--detector dino`` on a 1024² PNG: one 1024²
+    mask PNG of 0 and 255 per concept."""
+    import numpy as np
+
+    from tweediemix_tpu_torch.cli import segment
+    from tweediemix_tpu_torch.utils.image import read_png
+
+    rc, _, wall = run_cli(segment.main, [
+        "--input_path", image_png, "--text_condition", SEG_CONCEPTS, "--output_path", masks_dir,
+        "--seg_preset", "sam", "--sam_checkpoint", sam_path, "--detector_dir", pth, "--detector", "dino"])
+    if rc != 0:
+        fail(f"the segment CLI with --detector dino returned {rc}")
+    mask_areas = []
+    for name in SEG_CONCEPTS.split("+"):
+        header, mask = read_png(os.path.join(masks_dir, f"{name}.png"))
+        if (header["width"], header["height"], header["color_type"]) != (1024, 1024, 0):
+            fail(f"--detector dino {name}.png: {header}")
+        if not set(np.unique(mask).tolist()) <= {0, 255}:
+            fail(f"--detector dino {name}.png holds values other than 0 and 255")
+        mask_areas.append(float((mask > 0).mean()))
+    out = dict(wall_s=wall, mask_areas=mask_areas)
+    log(f"dino segment cli: {json.dumps(out)}")
+    return out
+
+
+def dino_layers(sam_path, pth):
+    """``LangSAM.from_pretrained(detector="dino")`` from the checkpoints;
+    one ``DinoDetector`` call on a 1024² image timed with CUDA events (and
+    the host clock), split into backbone, backbone with the level
+    projections, text, encoder and decoder, with its peak memory; then one
+    Swin-B stage-3 block (a shifted one), one encoder layer and one decoder
+    layer held to fp32 on the CPU within ``SEG_REL_TOL`` of their max; one
+    call under torch.profiler (device time by kernel class, idle share).
+    Returns (layers, blocks)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tweediemix_tpu_torch.models.dino import (
+        generate_special_token_masks,
+        get_sine_pos_embed,
+        preprocess_caption,
+    )
+    from tweediemix_tpu_torch.segmentation.lang_sam import LangSAM
+
+    ls = LangSAM.from_pretrained(sam_path, pth, detector="dino", device="cuda")
+    det, model, cfg = ls.dino, ls.dino.model, ls.dino.config
+    del ls
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    size = cfg.swin.image_size
+    image = torch.rand((1024, 1024, 3), generator=gen, device="cuda")
+    pixels = torch.randn((1, size, size, 3), generator=gen, device="cuda")
+    ids = np.asarray(det.tokenizer([preprocess_caption("a cat")]))
+    attend, pos = generate_special_token_masks(ids)
+    ids_t, attend_t, pos_t, tok_t = (torch.from_numpy(a).cuda() for a in (ids, attend, pos, ids != 0))
+    blocks = {}
+    with torch.inference_mode():
+        weights = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det(image, "a cat")
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        text, text_pos = model.encode_text(ids_t, attend_t, pos_t)
+        vision, vision_pos, shapes = model.encode_image(pixels)
+        enc_vision, enc_text = model.encode(vision, text, vision_pos, text_pos, shapes, attend_t, tok_t)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            det(image, "a cat")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+        layers = dict(
+            gpu=gpu_name_and_power(), caption_tokens=int(ids.shape[1]), levels=shapes,
+            detector_ms=cuda_ms(lambda: det(image, "a cat"), 10), detector_wall_ms=wall_ms,
+            detector_first_wall_ms=first_ms,
+            backbone_ms=cuda_ms(lambda: model.backbone(pixels), 5),
+            backbone_and_levels_ms=cuda_ms(lambda: model.encode_image(pixels), 5),
+            text_ms=cuda_ms(lambda: model.encode_text(ids_t, attend_t, pos_t), 5),
+            encoder_ms=cuda_ms(lambda: model.encode(vision, text, vision_pos, text_pos, shapes,
+                                                    attend_t, tok_t), 5),
+            decoder_ms=cuda_ms(lambda: model.decode(enc_vision, enc_text, shapes, tok_t), 5),
+            weights_gib=weights / 2**30, peak_gib=peak / 2**30, call_gib=(peak - weights) / 2**30,
+        )
+        log(f"dino layers: {json.dumps(layers)}")
+    layers["profile"] = profile_fn("dino detector call", lambda: det(image, "a cat"))
+    with torch.inference_mode():
+        n = vision.shape[1]
+        refs = model.geometry(shapes, vision.device)["refs"][None, :, None, :].expand(1, n, len(shapes), 2)
+        box = torch.sigmoid(torch.randn((1, cfg.num_queries, 4), generator=gen, device="cuda"))
+        query_pos = model.reference_points_head(get_sine_pos_embed(box, cfg.d_model // 2))
+        additive = torch.where(tok_t[:, None, None, :], 0.0, torch.finfo(torch.float32).min)
+        cases = {
+            "swin_stage3_block1": (model.backbone.layers_2_blocks_1,
+                                   (torch.randn((1, 24, 24, 512), generator=gen, device="cuda"),)),
+            "encoder_layer0": (model.encoder_layers_0, (vision, text, vision_pos, text_pos, refs, shapes,
+                                                        attend_t, ~tok_t)),
+            "decoder_layer0": (model.decoder_layers_0, (
+                model.query_position_embeddings.weight[None], query_pos,
+                box[:, :, None, :].expand(-1, -1, len(shapes), 4), enc_vision, enc_text, additive, shapes)),
+        }
+        for name, (layer, args) in cases.items():
+            got = layer(*args)
+            want = copy.deepcopy(layer).cpu()(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            errs = [_rel_err(g, w) for g, w in zip(got, want)]
+            blocks[name] = dict(rel_err=max(errs), absmax=max(w.abs().max().item() for w in want))
+            if not all(torch.isfinite(g).all() for g in got) or max(errs) > SEG_REL_TOL:
+                fail(f"GroundingDINO {name} on the card vs fp32 on the CPU: {errs} (limit {SEG_REL_TOL})")
+    log(f"dino layers card vs cpu: {json.dumps(blocks)}")
+    del det, model
+    torch.cuda.empty_cache()
+    return layers, blocks
 
 
 def phase_reference_segmentation() -> dict:
     """The tiny SAM and detector (``LangSAM.random_init``, one seed) on the
     card against the CPU, fp32: mask logits within ``SEG_REL_TOL`` of max
     |logit|, boxes and scores within it, and the boolean masks equal but
-    for pixels whose CPU logit lies within that tolerance of 0."""
+    for pixels whose CPU logit lies within that tolerance of 0; then the
+    tiny GroundingDINO (``reference_dino``)."""
     import torch
 
     from tweediemix_tpu_torch.segmentation.lang_sam import LangSAM
@@ -1304,7 +1689,55 @@ def phase_reference_segmentation() -> dict:
                          flipped_off_edge=int(flipped.sum()), logit_absmax=scale.item())
         if max(logit_err, box_err, score_err) > SEG_REL_TOL or flipped.any():
             fail(f"tiny SAM/detector on the card vs the CPU for {text!r}: {out[text]}")
+    out["dino"] = reference_dino()
     log(f"reference segmentation: {json.dumps(out)}")
+    return out
+
+
+def reference_dino() -> dict:
+    """The tiny GroundingDino (``seeded_init_`` and a 0.05·N(0, 1) draw on
+    every parameter, one seed) on the card against the CPU, fp32, on a 32²
+    image and a two-phrase caption with a pad: the -inf pattern of the
+    logits equal, the finite logits within ``SEG_REL_TOL`` of their max,
+    the boxes within it, and the same top queries."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tweediemix_tpu_torch.models.dino import (
+        DinoConfig,
+        GroundingDino,
+        generate_special_token_masks,
+        stable_top_k,
+    )
+    from tweediemix_tpu_torch.segmentation.lang_sam import seeded_init_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DinoConfig.tiny()
+    gen = torch.Generator().manual_seed(5)
+    cpu = seeded_init_(GroundingDino(cfg, device="cpu"), gen).eval()
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    card = copy.deepcopy(cpu).cuda()
+    ids = np.array([[101, 1100, 1101, 1012, 1102, 1012, 102, 0]])
+    attend, pos = generate_special_token_masks(ids)
+    inputs = [torch.randn((1, 32, 32, 3), generator=gen)]
+    inputs += [torch.from_numpy(a) for a in (ids, attend, pos, ids != 0)]
+    with torch.inference_mode():
+        logits, boxes = (t.cpu() for t in card(*(t.cuda() for t in inputs)))
+        want_logits, want_boxes = cpu(*inputs)
+    finite = torch.isfinite(want_logits)
+    top = [stable_top_k(torch.sigmoid(torch.nan_to_num(x[0], neginf=-1e30)).max(-1).values, cfg.max_boxes)
+           for x in (logits, want_logits)]
+    out = dict(logit_rel_err=_rel_err(logits[finite], want_logits[finite]),
+               box_err=(boxes - want_boxes).abs().max().item(), top_queries=top[1].tolist(),
+               neginf=int((~finite).sum()), logit_absmax=want_logits[finite].abs().max().item())
+    if (not torch.equal(torch.isneginf(logits), ~finite) or not torch.isfinite(logits[finite]).all()
+            or max(out["logit_rel_err"], out["box_err"]) > SEG_REL_TOL or not torch.equal(top[0], top[1])):
+        fail(f"tiny GroundingDINO on the card vs the CPU: {out}, card top {top[0].tolist()}")
     return out
 
 
@@ -2314,6 +2747,7 @@ def main() -> None:
               "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
               kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"],
               cli_launches=cli["launches"], cli_sam_launches=cli["segmentation"]["fusion"]["launches"],
+              cli_dino_launches={k: v["launches"] for k, v in cli["segmentation"]["dino"]["fusion"].items()},
               cli_video_launches=cli_runs["bf16"]["launches"]["flash"],
               train_launches=cli["train"]["cd"]["launches_per_step"],
               train_te_launches=cli["train"]["te_8bit"]["launches_per_step"],

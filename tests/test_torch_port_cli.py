@@ -12,6 +12,8 @@ the CLI's tiny preset draws its own random weights.
 """
 
 import json
+import os
+import re
 import warnings
 
 import jax
@@ -39,6 +41,9 @@ from tweediemix_tpu_torch.models import unet2d as port_unet2d
 from tweediemix_tpu_torch.models import vae as port_vae
 from tweediemix_tpu_torch.ops.quant import QLinear
 from tweediemix_tpu_torch.utils import tokenizer as port_tok
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TEXT_TOL, IMAGE_TOL = 1e-5, 1e-4
 HW = 8  # latent side; masks are 64 x 64, images 16 x 16 (the tiny VAE upsamples twice)
@@ -277,12 +282,14 @@ def test_cli_heuristic_segmentation_and_seed_sets(tmp_path, capsys):
     (["--num_seeds", "3", "--prompt", PROMPT + "||" + PROMPT], ValueError, "must equal --num_seeds"),
     (["--mesh_devices", "2"], NotImplementedError, "ROADMAP item 16"),
     (["--profile", "prof"], NotImplementedError, "ROADMAP item 16"),
-    # the GroundingDINO detector is not ported: asked for, or sniffed from a
-    # single checkpoint file, it raises before any model loads
-    (["--seg_preset", "sam", "--sam_checkpoint", "sam.pth", "--detector_dir", "dino",
-      "--detector", "dino"], NotImplementedError, "ROADMAP item 13"),
-    (["--seg_preset", "sam", "--sam_checkpoint", "sam.pth", "--detector_dir", __file__],
-     NotImplementedError, "ROADMAP item 13"),
+    # GroundingDINO asked for with a checkpoint that is not there, or sniffed
+    # from a single file that is not a checkpoint: its load raises naming the
+    # file, before SAM loads (the two ids keep their earlier names)
+    pytest.param(["--seg_preset", "sam", "--sam_checkpoint", "sam.pth", "--detector_dir", "dino",
+                  "--detector", "dino"], FileNotFoundError, "no GroundingDINO checkpoint at dino",
+                 id="extra4-NotImplementedError-ROADMAP item 13"),
+    pytest.param(["--seg_preset", "sam", "--sam_checkpoint", "sam.pth", "--detector_dir", __file__],
+                 ValueError, re.escape(__file__), id="extra5-NotImplementedError-ROADMAP item 13"),
 ])
 def test_cli_error_contracts(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):

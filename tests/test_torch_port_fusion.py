@@ -8,6 +8,8 @@ random initial latent). Tolerances: exact for the DDIM table and the masks;
 trajectories and decoded images, for fp32 sum order across many UNet calls.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,9 @@ from tweediemix_tpu_torch.models import unet2d as port_unet2d
 from tweediemix_tpu_torch.models import vae as port_vae
 from tweediemix_tpu_torch.models.convert import load_params
 from tweediemix_tpu_torch.schedulers import ddim as port_ddim
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TRAJ_TOL = 1e-4
 

@@ -13,6 +13,9 @@ import torch
 
 import tweediemix_tpu_torch
 
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "tweediemix_tpu_torch")
 
@@ -36,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "segmentation.detector", "segmentation.lang_sam", "cli.segment", "utils.image",
                  "cli.run_video", "cli.train", "training.custom_diffusion", "training.trainer",
                  "training.optim", "training.adam8bit", "training.lr_schedules", "training.data",
-                 "training.augment", "training.class_gen", "training.retrieve", "utils.logging"):
+                 "training.augment", "training.class_gen", "training.retrieve", "utils.logging",
+                 "models.swin", "models.bert", "models.dino"):
         assert f"tweediemix_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -154,11 +158,23 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
     from tweediemix_tpu_torch.segmentation.lang_sam import LangSAM
     from tweediemix_tpu_torch.segmentation.sam import SAM, SAMConfig
 
+    from tweediemix_tpu_torch.models.bert import BertConfig, BertTextEncoder
+    from tweediemix_tpu_torch.models.convert import load_dino
+    from tweediemix_tpu_torch.models.dino import DinoConfig, GroundingDino
+    from tweediemix_tpu_torch.models.swin import SwinBackbone, SwinConfig
+
     for build in (lambda: SAM(SAMConfig.tiny()), lambda: TextBoxDetector(DetectorConfig.tiny()),
                   lambda: CLIPVisionModel(CLIPVisionConfig.tiny()), LangSAM.random_init,
                   lambda: make_segment_fn("a cat", "out", "sam-random"),
                   lambda: segment.main(["--input_path", "x.png", "--text_condition", "a cat",
-                                        "--output_path", "out"])):
+                                        "--output_path", "out"]),
+                  lambda: GroundingDino(DinoConfig.tiny()), lambda: SwinBackbone(SwinConfig.tiny()),
+                  lambda: BertTextEncoder(BertConfig.tiny()),
+                  lambda: load_dino("groundingdino_swinb_cogcoor.pth", DinoConfig.tiny()),
+                  lambda: LangSAM.from_pretrained("sam.pth", "groundingdino_swinb_cogcoor.pth",
+                                                  detector="dino"),
+                  lambda: make_segment_fn("a cat", "out", "sam", sam_checkpoint="sam.pth",
+                                          detector_dir="groundingdino_swinb_cogcoor.pth")):
         with pytest.raises(RuntimeError, match="cuda"):
             build()
 
@@ -200,6 +216,20 @@ def test_training_cli_runs_without_pil(tmp_path, monkeypatch, capsys):
                     device="cpu")
     assert rc == 0 and "saved" in capsys.readouterr().out
     assert (out / "delta-2.bin").exists() and (tmp_path / "cls" / "00000.png").exists()
+
+
+def test_torch_threads_are_capped_per_xdist_worker():
+    """Each xdist worker runs torch on its share of the host's cores, and
+    every port test file applies that cap when it is imported (each worker
+    imports them all): uncapped, the workers' intra-op threads spin against
+    each other and against XLA's."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch.get_num_threads() == max(1, os.cpu_count() // workers)
+    cap = ('torch.set_num_threads(max(1, os.cpu_count() // '
+           'int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))')
+    files = sorted(f for f in os.listdir(os.path.join(REPO, "tests")) if f.startswith("test_torch_port_"))
+    uncapped = [f for f in files if cap not in open(os.path.join(REPO, "tests", f), encoding="utf-8").read()]
+    assert len(files) >= 19 and not uncapped, uncapped
 
 
 def test_package_exports_version_and_ddim_table():

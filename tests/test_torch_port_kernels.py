@@ -13,6 +13,7 @@ alone reads up to ~4e-3.
 """
 
 import ctypes
+import os
 import shutil
 
 import pytest
@@ -38,6 +39,9 @@ from tweediemix_tpu_torch.ops.flash_attention import (
 
 from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
 from tweediemix_tpu_torch.tools import int8_variants
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 INT8_TOL = 1e-2
 SHORT_TOL = 1e-2

@@ -28,6 +28,9 @@ from tweediemix_tpu_torch.models import convert as port_convert
 from tweediemix_tpu_torch.models import unet2d as port_unet2d
 from tweediemix_tpu_torch.models import vae as port_vae
 
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 TOL = 1e-4
 
 

@@ -10,6 +10,7 @@ the card (test_torch_port_kernels.py and chip_smoke.py).
 """
 
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +25,9 @@ from tweediemix_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from tweediemix_tpu_torch.ops.stacked import lora_delta, stacked_linear
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 # tweediemix_tpu.ops re-exports the `attention` function under the module's
 # name, so import the module explicitly

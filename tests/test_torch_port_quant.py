@@ -48,6 +48,9 @@ from tweediemix_tpu_torch.ops.flash_attention import (
 )
 from tweediemix_tpu_torch.schedulers import ddim as port_ddim
 
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OP_TOL = 1e-6
 MODEL_TOL = 1e-4

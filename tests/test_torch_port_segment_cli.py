@@ -1,11 +1,13 @@
 """The torch port's segmentation presets and CLIs on the CPU: ``sam-random``
 end to end through the fusion CLI, the segment CLI's file contract, the
 ``--mask_dir`` round trip and its PNG route held against the JAX package's
-loader, the GroundingDINO and half-supplied-weights errors, and the port's
+loader, the GroundingDINO load and half-supplied-weights errors, and the port's
 own PNG reader, writer and gray resize against PIL.
 """
 
 import json
+import os
+import re
 import struct
 import sys
 import zlib
@@ -24,6 +26,9 @@ from tweediemix_tpu_torch.segmentation import (
     make_segment_fn,
 )
 from tweediemix_tpu_torch.utils import image as port_image
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 PROMPT = "photo of a cat running+photo of a dog running+mountain background"
 PROMPT_ORIG = "photo of a cat and a dog running"
@@ -160,7 +165,17 @@ def test_mask_dir_reads_the_jax_clis_jpgs_only_with_pil(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["explicit", "a single file", "grounding config"])
-def test_dino_detector_raises_and_never_falls_back(tmp_path, how):
+def test_dino_detector_raises_and_never_falls_back(tmp_path, monkeypatch, how):
+    """GroundingDINO asked for (an empty directory), or sniffed (an empty
+    ``.pth``, a directory holding only a grounding ``config.json``): the
+    load raises naming the checkpoint, before SAM loads, and the OWL-ViT
+    loader never runs."""
+    from tweediemix_tpu_torch.models import convert
+
+    def no_owlvit(*args, **kwargs):
+        raise AssertionError("fell back to the OWL-ViT loader")
+
+    monkeypatch.setattr(convert, "load_detector", no_owlvit)
     det_dir = tmp_path / "det"
     det_dir.mkdir()
     detector = "auto"
@@ -171,7 +186,7 @@ def test_dino_detector_raises_and_never_falls_back(tmp_path, how):
         det_dir.write_bytes(b"")
     else:
         (det_dir / "config.json").write_text(json.dumps({"model_type": "grounding-dino"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises((FileNotFoundError, ValueError), match=re.escape(str(det_dir))):
         make_segment_fn("a cat", str(tmp_path), "sam", sam_checkpoint=str(tmp_path / "sam.pth"),
                         detector_dir=str(det_dir), detector=detector, device="cpu")
 

@@ -40,6 +40,9 @@ from tweediemix_tpu_torch.segmentation import lang_sam as port_lang_sam
 from tweediemix_tpu_torch.segmentation import sam as port_sam
 from tweediemix_tpu_torch.utils import tokenizer as port_tok
 
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 BLOCK_TOL, MODEL_TOL = 3e-5, 1e-4
 BOXES = np.array([[0.1, 0.2, 0.7, 0.8], [0.3, 0.1, 0.9, 0.6], [0.0, 0.0, 1.0, 1.0]], np.float32)
 

@@ -9,6 +9,7 @@ in fp32.
 import dataclasses
 import gzip
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,9 @@ from tweediemix_tpu.utils import tokenizer as jax_tok
 from tweediemix_tpu_torch.models import clip as port_clip
 from tweediemix_tpu_torch.models.convert import clip_torch_name, load_params
 from tweediemix_tpu_torch.utils import tokenizer as port_tok
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 1e-5
 

@@ -33,6 +33,9 @@ from tweediemix_tpu_torch.training import data as port_data
 from tweediemix_tpu_torch.utils.image import read_png, write_png
 from tweediemix_tpu_torch.utils.tokenizer import HashTokenizer
 
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 
 @pytest.fixture
 def image_dirs(tmp_path):

@@ -10,6 +10,7 @@ fp32 throughout.
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,9 @@ from tweediemix_tpu_torch.training import adam8bit as port_adam8bit
 from tweediemix_tpu_torch.training import custom_diffusion as port_cd
 from tweediemix_tpu_torch.training import lr_schedules as port_lr
 from tweediemix_tpu_torch.training import trainer as port_trainer
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 LR = 1e-3
 MODIFIER_ID = 7
@@ -521,26 +525,39 @@ def test_lr_schedules_match_jax():
 # trainable selection at SDXL's topology (shapes only)
 
 
+@pytest.fixture(scope="module")
+def sdxl_abstract_trees():
+    """``jax.eval_shape`` of the SDXL UNet tree (without and with a LoRA
+    slot) and of both towers, each traced once per module."""
+    S = jax.ShapeDtypeStruct
+    key = jax.random.PRNGKey(0)
+    ids = S((1, 77), jnp.int32)
+    towers = {name: jax.eval_shape(jax_clip.CLIPTextModel(cfg).init, key, ids)["params"]
+              for name, cfg in (("te1", jax_clip.CLIPTextConfig.sdxl_text_encoder()),
+                                ("te2", jax_clip.CLIPTextConfig.sdxl_text_encoder_2()))}
+    unets = {}
+
+    def trees(lora):
+        if lora not in unets:
+            jcfg = jax_unet2d.UNetConfig.sdxl(**({"lora_slots": 1} if lora else {}))
+            unets[lora] = jax.eval_shape(jax_unet2d.UNet2DConditionModel(jcfg).init, key,
+                                         S((1, 16, 16, 4), jnp.float32), S((), jnp.int32),
+                                         S((1, 77, 2048), jnp.float32), S((1, 1280), jnp.float32),
+                                         S((1, 6), jnp.float32))["params"]
+        return {"unet": unets[lora], **towers}
+
+    return trees
+
+
 @pytest.mark.parametrize("freeze_model,train_text_encoder",
                          [("crossattn_kv", False), ("crossattn", False), ("lora", True)])
-def test_trainable_selection_matches_jax_at_sdxl_topology(freeze_model, train_text_encoder):
+def test_trainable_selection_matches_jax_at_sdxl_topology(freeze_model, train_text_encoder,
+                                                          sdxl_abstract_trees):
     """``full_trainable_mask`` on the port's SDXL UNet and towers (built on
     ``meta``) names the JAX package's trainable leaves of ``jax.eval_shape``
     of the SDXL tree, mapped to the port's names, with the same shapes."""
     lora = dict(lora_slots=1) if freeze_model == "lora" else {}
-    S = jax.ShapeDtypeStruct
-    key = jax.random.PRNGKey(0)
-    jcfg = jax_unet2d.UNetConfig.sdxl(**lora)
-    c1, c2 = jax_clip.CLIPTextConfig.sdxl_text_encoder(), jax_clip.CLIPTextConfig.sdxl_text_encoder_2()
-    ids = S((1, 77), jnp.int32)
-    shapes = {
-        "unet": jax.eval_shape(jax_unet2d.UNet2DConditionModel(jcfg).init, key,
-                               S((1, 16, 16, 4), jnp.float32), S((), jnp.int32),
-                               S((1, 77, 2048), jnp.float32), S((1, 1280), jnp.float32),
-                               S((1, 6), jnp.float32))["params"],
-        "te1": jax.eval_shape(jax_clip.CLIPTextModel(c1).init, key, ids)["params"],
-        "te2": jax.eval_shape(jax_clip.CLIPTextModel(c2).init, key, ids)["params"],
-    }
+    shapes = sdxl_abstract_trees(bool(lora))
     jmask = jax_trainer.full_trainable_mask(shapes, freeze_model, True, train_text_encoder)
     flat = traverse_util.flatten_dict(shapes)
     want = {}

@@ -7,6 +7,8 @@ Tolerance: 1e-4 (atol and rtol) on whole micro/tiny models, for sum-order
 differences across a few dozen fp32 layers; 3e-5 on single functions.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,9 @@ from tweediemix_tpu_torch.models.convert import (
     torch_name,
 )
 from tweediemix_tpu_torch.models.embeddings import timestep_embedding
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 MODEL_TOL = 1e-4
 

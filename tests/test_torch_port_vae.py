@@ -6,6 +6,8 @@ rtol) on the whole tiny encoder and decoder, for fp32 sum order; exact for
 the elementwise latent scaling.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -14,6 +16,9 @@ import torch
 from tweediemix_tpu.models import vae as jax_vae
 from tweediemix_tpu_torch.models import vae as port_vae
 from tweediemix_tpu_torch.models.convert import convert_params, load_params
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 MODEL_TOL = 1e-4
 

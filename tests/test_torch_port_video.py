@@ -15,6 +15,7 @@ plain version.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,9 @@ from tweediemix_tpu_torch.ops import attention as port_attention
 from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
 from tweediemix_tpu_torch.schedulers import ddim as port_ddim
 from tweediemix_tpu_torch.video import pipeline as port_video
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 MODEL_TOL = 1e-4
 BLOCK_TOL = 3e-5

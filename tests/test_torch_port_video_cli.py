@@ -36,6 +36,9 @@ from tweediemix_tpu_torch.utils import image as port_image
 from tweediemix_tpu_torch.utils.tokenizer import HashTokenizer
 from tweediemix_tpu_torch.video.pipeline import export_gif
 
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 MODEL_TOL = 1e-4
 COND_TOL = 1e-5
 # I2VGen-XL's topology (4 levels with the plain DownBlock3D tail, two

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import contextlib
+import os
 
 from tests.test_torch_port_quant import MODEL_TOL, forced_port_sites
 from tests.test_torch_port_video import numpy_params
@@ -30,6 +31,9 @@ from tweediemix_tpu.ops import quant as jax_quant
 from tweediemix_tpu_torch.models import unet3d as port_unet3d
 from tweediemix_tpu_torch.models.convert import load_params
 from tweediemix_tpu_torch.ops import quant as port_quant
+
+# each xdist worker takes its share of the host's cores (a serial run keeps them all)
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 B, F, HW, CTX_LEN = 2, 3, 8, 5
 SITE_TOL = 3e-5

@@ -16,15 +16,17 @@ or ``--model_preset tiny`` (seeded random small models for smoke runs).
 Masks come from ``--mask_dir`` (``<seg_concept>.png`` per concept, as the
 port's ``cli/segment.py`` writes them; the JAX package's ``.jpg`` where PIL
 is installed) or from the in-process segmentation stage at the sampler's
-boundary step: SAM ViT-H and the OWL-ViT detector from
+boundary step: SAM ViT-H and a detector from
 ``--sam_checkpoint``/``--detector_dir`` (the ``sam`` preset, chosen when
-both are given), ``sam-random`` or the weights-free ``heuristic``.
+both are given: the OWL-ViT detector from an HF directory, or the
+reference's GroundingDINO Swin-B from its ``.pth`` or an HF directory with
+``vocab.txt`` beside it, ``--detector dino`` or found by ``auto``),
+``sam-random`` or the weights-free ``heuristic``.
 
 It runs on the card; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU. ``--device`` and ``--seg_gpu`` are accepted for the reference's
 scripts and only warn. Not ported yet: ``--mesh_devices`` > 1 and
-``--profile`` (ROADMAP item 16), the GroundingDINO detector
-(``--detector dino``, item 13).
+``--profile`` (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -82,13 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sam_checkpoint", type=str, default=None,
                    help="segment-anything ViT-H checkpoint for --seg_preset sam")
     p.add_argument("--detector_dir", type=str, default=None,
-                   help="detector checkpoint dir for --seg_preset sam")
+                   help="detector checkpoint for --seg_preset sam: an HF OWL-ViT dir, or a "
+                        "GroundingDINO .pth or HF dir with vocab.txt beside it")
     p.add_argument("--box_threshold", type=float, default=0.20,
                    help="detector score threshold")
     p.add_argument("--detector", type=str, default="auto",
                    choices=["auto", "owlvit", "dino"],
-                   help="box-detector backend for the sam preset (OWL-ViT; "
-                        "GroundingDINO is not ported and raises)")
+                   help="box-detector backend for the sam preset: OWL-ViT (owlvit), "
+                        "GroundingDINO Swin-B (dino), or sniff the checkpoint (auto: a "
+                        "single file or a grounding config.json is GroundingDINO)")
     p.add_argument("--profile", type=str, default=None,
                    help="directory for a profiler trace + phase timings (not ported yet)")
     p.add_argument("--num_seeds", type=int, default=1,

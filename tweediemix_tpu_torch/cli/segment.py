@@ -5,6 +5,10 @@
         --text_condition "a cat+a dog" --output_path masks/ \\
         --seg_preset sam --sam_checkpoint sam_vit_h.pth --detector_dir owlvit-base-patch32/
 
+``--detector_dir groundingdino_swinb_cogcoor.pth`` (``vocab.txt`` beside
+it) takes the reference's GroundingDINO detector instead (``--detector
+auto`` finds it; ``--detector dino`` asks for it).
+
 For each ``+``-separated concept: predict its mask, expand it to its
 bounding rectangle, black it out before the next concept, resolve the
 pairwise overlap, and write ``<concept>.png`` (8-bit gray, 0 or 255) into
@@ -35,13 +39,14 @@ def build_parser():
     p.add_argument("--sam_checkpoint", type=str, default=None,
                    help="segment-anything ViT-H checkpoint for --seg_preset sam")
     p.add_argument("--detector_dir", type=str, default=None,
-                   help="HF-layout OWL-ViT detection dir for --seg_preset sam")
+                   help="detector checkpoint for --seg_preset sam: an HF OWL-ViT detection "
+                        "dir, or a GroundingDINO .pth or HF dir with vocab.txt beside it")
     p.add_argument("--box_threshold", type=float, default=0.20)
     p.add_argument("--detector", type=str, default="auto",
                    choices=["auto", "owlvit", "dino"],
-                   help="box-detector backend for --seg_preset sam: OWL-ViT (HF dir), "
-                        "or sniff the checkpoint (auto); GroundingDINO (dino) is not "
-                        "ported and raises")
+                   help="box-detector backend for --seg_preset sam: OWL-ViT (owlvit), "
+                        "GroundingDINO Swin-B (dino), or sniff the checkpoint (auto: a "
+                        "single file or a grounding config.json is GroundingDINO)")
     return p
 
 

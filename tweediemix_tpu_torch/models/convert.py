@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import re
 import struct
 from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
@@ -672,3 +673,283 @@ def load_clip_vision_model(source, config, device="cuda"):
 
     return load_checkpoint(CLIPVisionModel(config, device="meta"), _source(source), device,
                            ignore=("vision_model.embeddings.position_ids",))
+
+
+# ---------------------------------------------------------------------------
+# GroundingDINO: the JAX tree, HF-layout directories and the original
+# groundingdino repo's single .pth (the reference's groundingdino_swinb_cogcoor)
+
+
+def dino_entries(path: Tuple[str, ...], arr: np.ndarray):
+    """A JAX ``GroundingDino`` tree leaf → its port entry: the names are
+    the tree's (``kernel``/``scale``/``embedding`` → ``weight``), Dense
+    kernels transposed, conv kernels HWIO → OIHW; the tables
+    (relative-position bias, BERT's embeddings, ``level_embed``, the
+    layer-scale vectors) keep their layout."""
+    name = ".".join(path[:-1] + ({"kernel": "weight", "scale": "weight",
+                                  "embedding": "weight"}.get(path[-1], path[-1]),))
+    return [(name, torch_layout(path, arr))]
+
+
+def _dino_original_to_hf(names: Sequence[str]) -> Dict[str, Tuple[str, Optional[int]]]:
+    """The original groundingdino repo's names → HF
+    ``GroundingDinoForObjectDetection``'s, as {HF name: (original name,
+    part)}: a merged Swin ``attn.qkv`` or text/decoder ``in_proj_*`` gives
+    three HF names, ``part`` 0/1/2 its q/k/v third along axis 0 (else
+    None). The JAX package's ``_dino_original_to_hf`` rename, name for
+    name; a later name for the same HF name replaces an earlier one, and a
+    name it does not know passes through unchanged."""
+    out: Dict[str, Tuple[str, Optional[int]]] = {}
+    qkv = (("query", 0), ("key", 1), ("value", 2))
+    for name in names:
+        n = name[len("module."):] if name.startswith("module.") else name
+        if n.startswith("backbone.0."):
+            n = n[len("backbone.0."):]
+            if n.startswith("patch_embed.proj"):
+                n = n.replace("patch_embed.proj", "embeddings.patch_embeddings.projection")
+            elif n.startswith("patch_embed.norm"):
+                n = n.replace("patch_embed.norm", "embeddings.norm")
+            elif re.match(r"norm(\d)\.", n):
+                n = f"hidden_states_norms.stage{int(n[4]) + 1}." + n.split(".", 1)[1]
+            else:
+                n = "encoder." + n
+                for old, new in ((".norm1.", ".layernorm_before."), (".norm2.", ".layernorm_after."),
+                                 (".attn.proj.", ".attention.output.dense."),
+                                 (".attn.relative_position_bias_table",
+                                  ".attention.self.relative_position_bias_table"),
+                                 (".attn.relative_position_index",
+                                  ".attention.self.relative_position_index"),
+                                 (".mlp.fc1.", ".intermediate.dense."), (".mlp.fc2.", ".output.dense.")):
+                    n = n.replace(old, new)
+                if ".attn.qkv." in n:
+                    for p, i in qkv:
+                        out["model.backbone.conv_encoder.model."
+                            + n.replace(".attn.qkv.", f".attention.self.{p}.")] = (name, i)
+                    continue
+            out["model.backbone.conv_encoder.model." + n] = (name, None)
+            continue
+        if n.startswith("bert."):
+            if "pooler" not in n and not n.endswith("position_ids"):
+                out["model.text_backbone." + n[len("bert."):]] = (name, None)
+            continue
+        prefixes = (("feat_map.", "model.text_projection."), ("input_proj.", "model.input_proj_vision."),
+                    ("bbox_embed.", "bbox_embed."))
+        hit = next(((old, new) for old, new in prefixes if n.startswith(old)), None)
+        if hit:
+            out[hit[1] + n[len(hit[0]):]] = (name, None)
+            continue
+        if n.startswith("transformer."):
+            n = n[len("transformer."):]
+            if n == "level_embed":
+                out["model.level_embed"] = (name, None)
+                continue
+            if n.startswith("tgt_embed."):
+                out["model.query_position_embeddings.weight"] = (name, None)
+                continue
+            prefixes = (("enc_output.", "model.enc_output."), ("enc_output_norm.", "model.enc_output_norm."),
+                        ("enc_out_bbox_embed.", "model.encoder_output_bbox_embed."),
+                        ("decoder.bbox_embed.", "bbox_embed."),
+                        ("decoder.norm.", "model.decoder.layer_norm."),
+                        ("decoder.ref_point_head.", "model.decoder.reference_points_head."))
+            hit = next(((old, new) for old, new in prefixes if n.startswith(old)), None)
+            if hit:
+                out[hit[1] + n[len(hit[0]):]] = (name, None)
+                continue
+            m = re.match(r"encoder\.layers\.(\d+)\.(.*)", n)
+            if m:
+                rest = (m.group(2).replace("linear1.", "fc1.").replace("linear2.", "fc2.")
+                        .replace("norm1.", "self_attn_layer_norm.").replace("norm2.", "final_layer_norm."))
+                out[f"model.encoder.layers.{m.group(1)}.deformable_layer.{rest}"] = (name, None)
+                continue
+            m = re.match(r"encoder\.text_layers\.(\d+)\.(.*)", n)
+            if m:
+                rest = (m.group(2).replace("linear1.", "fc1.").replace("linear2.", "fc2.")
+                        .replace("norm1.", "layer_norm_before.").replace("norm2.", "layer_norm_after."))
+                base = f"model.encoder.layers.{m.group(1)}.text_enhancer_layer."
+                if "self_attn.in_proj_" in rest:
+                    leaf = "weight" if rest.endswith("weight") else "bias"
+                    for p, i in qkv:
+                        out[base + f"self_attn.{p}.{leaf}"] = (name, i)
+                    continue
+                out[base + rest] = (name, None)
+                continue
+            m = re.match(r"encoder\.fusion_layers\.(\d+)\.(.*)", n)
+            if m:
+                rest = m.group(2)
+                for old, new in (("gamma_v", "vision_param"), ("gamma_l", "text_param"),
+                                 ("layer_norm_v.", "layer_norm_vision."),
+                                 ("layer_norm_l.", "layer_norm_text."),
+                                 ("attn.values_v_proj.", "attn.values_vision_proj."),
+                                 ("attn.values_l_proj.", "attn.values_text_proj."),
+                                 ("attn.out_v_proj.", "attn.out_vision_proj."),
+                                 ("attn.out_l_proj.", "attn.out_text_proj."),
+                                 ("attn.v_proj.", "attn.vision_proj."), ("attn.l_proj.", "attn.text_proj.")):
+                    rest = rest.replace(old, new)
+                out[f"model.encoder.layers.{m.group(1)}.fusion_layer.{rest}"] = (name, None)
+                continue
+            m = re.match(r"decoder\.layers\.(\d+)\.(.*)", n)
+            if m:
+                rest = m.group(2)
+                for old, new in (("cross_attn_text.", "encoder_attn_text."),
+                                 ("ca_text.", "encoder_attn_text."),
+                                 ("catext_norm.", "encoder_attn_text_layer_norm."),
+                                 ("cross_attn.", "encoder_attn."), ("norm1.", "encoder_attn_layer_norm."),
+                                 ("norm2.", "self_attn_layer_norm."), ("norm3.", "final_layer_norm."),
+                                 ("linear1.", "fc1."), ("linear2.", "fc2.")):
+                    rest = rest.replace(old, new)
+                base = f"model.decoder.layers.{m.group(1)}."
+                if "in_proj_" in rest:
+                    leaf = "weight" if rest.endswith("weight") else "bias"
+                    mod = rest.split(".in_proj_")[0]
+                    for p, i in qkv:
+                        out[base + f"{mod}.{p}.{leaf}"] = (name, i)
+                    continue
+                out[base + rest] = (name, None)
+                continue
+        out[n] = (name, None)
+    return out
+
+
+_DINO_SWIN_RENAMES = (
+    (re.compile(r"encoder\.layers\.(\d+)\.blocks\.(\d+)\."), r"layers_\1_blocks_\2."),
+    (re.compile(r"encoder\.layers\.(\d+)\.downsample\."), r"layers_\1_downsample."),
+    (re.compile(r"output\.dense\.(weight|bias)$"), r"output.\1"),
+    (re.compile(r"hidden_states_norms\.stage(\d+)"), r"norm_stage\1"),
+)
+
+
+def _dino_hf_to_port(name: str) -> Optional[str]:
+    """An HF ``GroundingDinoForObjectDetection`` name → the port's, or None
+    for what the port does not hold: the ``position_ids`` and
+    ``relative_position_index`` buffers and every copy of the shared box
+    head but ``bbox_embed.0`` (top level or under ``model.decoder.``). The
+    JAX package's ``convert_grounding_dino_state_dict`` renames, without
+    its layout changes."""
+    n = name
+    if n.endswith("position_ids") or n.endswith("relative_position_index"):
+        return None
+    m = re.match(r"(?:model\.decoder\.)?bbox_embed\.(\d+)\.(.*)", n)
+    if m:
+        if m.group(1) != "0":
+            return None
+        n = "bbox_embed." + m.group(2)
+    if n.startswith("model."):
+        n = n[len("model."):]
+    if n.startswith("backbone.conv_encoder.model."):
+        n = n[len("backbone.conv_encoder.model."):]
+        n = n.replace("embeddings.patch_embeddings.projection", "patch_embed")
+        n = n.replace("embeddings.norm", "patch_norm")
+        n = _DINO_SWIN_RENAMES[0][0].sub(_DINO_SWIN_RENAMES[0][1], n)
+        n = _DINO_SWIN_RENAMES[1][0].sub(_DINO_SWIN_RENAMES[1][1], n)
+        n = n.replace("attention.self.", "attention.").replace("attention.output.dense", "attention.out")
+        n = n.replace("intermediate.dense", "intermediate")
+        n = _DINO_SWIN_RENAMES[2][0].sub(_DINO_SWIN_RENAMES[2][1], n)
+        n = "backbone." + _DINO_SWIN_RENAMES[3][0].sub(_DINO_SWIN_RENAMES[3][1], n)
+    elif n.startswith("text_backbone."):
+        n = n[len("text_backbone."):]
+        for old, new in (("embeddings.word_embeddings.weight", "word_embeddings"),
+                         ("embeddings.position_embeddings.weight", "position_embeddings"),
+                         ("embeddings.token_type_embeddings.weight", "token_type_embeddings"),
+                         ("embeddings.LayerNorm", "embeddings_norm")):
+            n = n.replace(old, new)
+        n = re.sub(r"encoder\.layer\.(\d+)\.", r"layer_\1.", n)
+        for old, new in (("attention.self.", ""), ("attention.output.dense", "attn_out"),
+                         ("attention.output.LayerNorm", "attn_norm"), ("intermediate.dense", "intermediate"),
+                         ("output.dense", "output"), ("output.LayerNorm", "output_norm")):
+            n = n.replace(old, new)
+        n = "text_backbone." + n
+    elif re.match(r"input_proj_vision\.(\d+)\.(0|1)\.", n):
+        m = re.match(r"input_proj_vision\.(\d+)\.(0|1)\.(.*)", n)
+        n = f"input_proj_{m.group(1)}_{'conv' if m.group(2) == '0' else 'norm'}.{m.group(3)}"
+    elif n.startswith("encoder.layers."):
+        n = re.sub(r"encoder\.layers\.(\d+)\.", r"encoder_layers_\1.", n)
+    elif n.startswith("decoder.layers."):
+        n = re.sub(r"decoder\.layers\.(\d+)\.", r"decoder_layers_\1.", n)
+    elif n.startswith("decoder.layer_norm."):
+        n = n.replace("decoder.layer_norm.", "decoder_layer_norm.")
+    elif n.startswith("decoder.reference_points_head."):
+        n = n.replace("decoder.reference_points_head.", "reference_points_head.")
+    return re.sub(r"layers\.(\d+)\.", r"layers_\1.", n)
+
+
+def dino_checkpoint_names(names: Sequence[str]) -> Dict[str, Tuple[str, Optional[int]]]:
+    """A GroundingDINO checkpoint's names (HF layout, or the original
+    repo's, told apart as the JAX package does: any ``transformer.``,
+    ``bert.``, ``backbone.0.`` or ``module.`` name) → {port name:
+    (checkpoint name, q/k/v part or None)}. Of the box head's copies the
+    first ``bbox_embed.0`` in the checkpoint's order is read."""
+    if any(k.startswith(("transformer.", "bert.", "backbone.0.", "module.")) for k in names):
+        hf = _dino_original_to_hf(names)
+    else:
+        hf = {k: (k, None) for k in names}
+    out: Dict[str, Tuple[str, Optional[int]]] = {}
+    for hf_name, src in hf.items():
+        port = _dino_hf_to_port(hf_name)
+        if port is None or (port in out and port.startswith("bbox_embed.")):
+            continue
+        out[port] = src
+    return out
+
+
+class _Parts(Mapping):
+    """The tensors of ``source`` under new names, ``names`` = {new: (old,
+    part)}: part i reads the i-th third of the old tensor along axis 0."""
+
+    def __init__(self, source: Mapping, names: Mapping[str, Tuple[str, Optional[int]]]):
+        self.source, self.names = source, dict(names)
+        shapes = getattr(source, "shapes", None) or {k: tuple(v.shape) for k, v in source.items()}
+        self.shapes = {}
+        for new, (old, part) in self.names.items():
+            shape = tuple(shapes[old])
+            self.shapes[new] = shape if part is None else (shape[0] // 3,) + shape[1:]
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        old, part = self.names[name]
+        t = self.source[old]
+        return t if part is None else t.chunk(3, dim=0)[part]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.names)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+
+def read_dino_checkpoint(source) -> Mapping:
+    """A GroundingDINO checkpoint's named tensors: an HF-layout directory
+    (``CheckpointDir``), or the original repo's single file
+    (``torch.load(weights_only=True)``, its ``"model"`` entry where it has
+    one). Raises naming the path where there is nothing, or nothing that
+    loads."""
+    if not isinstance(source, (str, os.PathLike)):
+        return source
+    path = os.fspath(source)
+    if os.path.isdir(path):
+        return CheckpointDir(path)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no GroundingDINO checkpoint at {path}")
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except (EOFError, pickle.UnpicklingError, RuntimeError) as e:
+        raise ValueError(f"{path}: torch.load cannot read it as a GroundingDINO checkpoint "
+                         f"({type(e).__name__}: {e})") from e
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, Mapping) else None
+    if not isinstance(sd, Mapping):
+        raise ValueError(f"{path}: holds a {type(ckpt).__name__}, not a state dict")
+    return sd
+
+
+def load_dino(source, config, device="cuda"):
+    """A ``GroundingDino(config)`` on ``device`` from a GroundingDINO
+    checkpoint (``read_dino_checkpoint``: an HF directory or the original
+    ``.pth``, or named tensors), the counterpart of the JAX package's
+    ``load_dino_params``: the original layout renamed to HF's and its
+    merged q/k/v split, HF's names mapped to the port's, buffers and the
+    box head's extra copies skipped. A missing, unexpected or mis-shaped
+    name raises."""
+    from tweediemix_tpu_torch.models.dino import GroundingDino
+
+    device = resolve_device(device)
+    tensors = read_dino_checkpoint(source)
+    return load_checkpoint(GroundingDino(config, device="meta"),
+                           _Parts(tensors, dino_checkpoint_names(list(tensors))), device)

@@ -3,14 +3,16 @@
 preview to image-resolution foreground masks, run in process at the
 sampler's boundary step.
 
-Presets: ``sam`` loads SAM ViT-H and the OWL-ViT base-patch32 detector from
-local checkpoints (``sam_checkpoint``/``detector_dir``, or the
+Presets: ``sam`` loads SAM ViT-H and a detector from local checkpoints
+(``sam_checkpoint``/``detector_dir``, or the
 ``TWEEDIEMIX_SAM_CHECKPOINT``/``TWEEDIEMIX_DETECTOR_DIR`` environment
-variables); ``sam-random`` draws the tiny models from a seeded generator
-(tests, demos); ``heuristic`` substitutes vertical bands for real
-segmentation (smoke runs only, NOT production quality). The GroundingDINO
-detector (``detector="dino"``, or ``auto`` when it finds a DINO checkpoint)
-is not ported and raises; it never falls back to OWL-ViT.
+variables): the OWL-ViT base-patch32 detector from an HF directory, or the
+reference's GroundingDINO Swin-B (``detector="dino"``, or ``auto`` when it
+finds a DINO checkpoint: a single ``.pth`` or a grounding ``config.json``)
+with ``vocab.txt`` beside it; a detector that does not load raises and
+never falls back to the other. ``sam-random`` draws the tiny models from a
+seeded generator (tests, demos); ``heuristic`` substitutes vertical bands
+for real segmentation (smoke runs only, NOT production quality).
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ def make_segment_fn(seg_concepts: str, output_path: str, preset: str = "heuristi
         if not sam_checkpoint or not detector_dir:
             raise FileNotFoundError(
                 "seg preset 'sam' needs --sam_checkpoint (segment-anything "
-                "ViT-H .pth/safetensors) and --detector_dir (HF OWL-ViT dir), "
+                "ViT-H .pth/safetensors) and --detector_dir (HF OWL-ViT dir, or "
+                "a GroundingDINO .pth or HF dir with vocab.txt beside it), "
                 f"or the {SAM_CHECKPOINT_ENV}/{DETECTOR_DIR_ENV} env vars"
             )
         ls = LangSAM.from_pretrained(sam_checkpoint, detector_dir, box_threshold=box_threshold,

@@ -1,12 +1,13 @@
 """LangSAM: text → boxes → masks, in process (counterpart of
 ``tweediemix_tpu/segmentation/lang_sam.py``).
 
-``predict(image, text)`` detects boxes for the phrase with the OWL-ViT
-``TextBoxDetector`` and segments every box with ``SAM``; the masks stay on
-the device. ``make_model_segment_fn`` turns it into the fusion sampler's
-``segment_fn`` (detect → segment → rectangle-expand → black out →
-resolve overlap). ``HeuristicSegmenter`` is the weights-free stand-in for
-smoke runs.
+``predict(image, text)`` detects boxes for the phrase, with the OWL-ViT
+``TextBoxDetector`` or the reference's own GroundingDINO
+(``models/dino.py::DinoDetector``), and segments every box with ``SAM``;
+the masks stay on the device. ``make_model_segment_fn`` turns it into the
+fusion sampler's ``segment_fn`` (detect → segment → rectangle-expand →
+black out → resolve overlap). ``HeuristicSegmenter`` is the weights-free
+stand-in for smoke runs.
 
 Image resizes follow ``jax.image.resize(..., "bilinear")``, which
 antialiases when it downsamples: torch's ``bilinear`` with
@@ -56,11 +57,11 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 @torch.no_grad()
 def seeded_init_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Redraw every parameter and buffer of ``module`` from ``generator``:
-    LayerNorm weights 1 and biases 0, other biases 0, matrices and kernels
-    N(0, 1/fan_in), vectors and embedding tables N(0, 0.02²), SAM's random
-    Fourier matrix N(0, 1) and its relative-position tables 0 (as the JAX
-    package initialises them)."""
-    norms = {id(m) for m in module.modules() if isinstance(m, torch.nn.LayerNorm)}
+    LayerNorm and GroupNorm weights 1 and biases 0, other biases 0,
+    matrices and kernels N(0, 1/fan_in), vectors and embedding tables
+    N(0, 0.02²), SAM's random Fourier matrix N(0, 1) and its
+    relative-position tables 0 (as the JAX package initialises them)."""
+    norms = {id(m) for m in module.modules() if isinstance(m, (torch.nn.LayerNorm, torch.nn.GroupNorm))}
     for mod in module.modules():
         for name, t in list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False)):
             if id(mod) in norms:
@@ -81,16 +82,20 @@ def seeded_init_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
 
 
 class LangSAM:
-    """The detector and SAM on one device, with the detector's tokenizer.
-    Sets TF32 off for matmuls and convolutions in this process: the masks
-    are fp32 logits thresholded at 0."""
+    """The detector and SAM on one device: the OWL-ViT ``detector`` with its
+    tokenizer, or a GroundingDINO ``dino`` (a ``DinoDetector``, which holds
+    its own). Sets TF32 off for matmuls and convolutions in this process:
+    the masks are fp32 logits thresholded at 0, and DINO runs in fp32."""
 
-    def __init__(self, sam: SAM, detector: TextBoxDetector, tokenizer,
-                 box_threshold: float = 0.20):
+    def __init__(self, sam: SAM, detector: Optional[TextBoxDetector] = None, tokenizer=None,
+                 box_threshold: float = 0.20, dino=None):
+        if (detector is None) == (dino is None):
+            raise ValueError("LangSAM takes one detector: an OWL-ViT detector or a DinoDetector")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.sam = sam.eval()
-        self.detector = detector.eval()
+        self.detector = None if detector is None else detector.eval()
+        self.dino = dino
         self.tokenizer = tokenizer
         self.box_threshold = box_threshold
 
@@ -102,25 +107,34 @@ class LangSAM:
     def from_pretrained(cls, sam_checkpoint: str, detector_dir: str, box_threshold: float = 0.20,
                         detector: str = "auto", device="cuda") -> "LangSAM":
         """SAM ViT-H from a segment-anything ``.pth``/``.safetensors`` file
-        or directory, and the OWL-ViT base-patch32 detector and its
-        tokenizer from an HF directory (``vocab.json`` beside the weights
-        or under ``tokenizer/``), on ``device``. ``detector`` is "owlvit",
-        or "auto", which takes a single file or a ``config.json`` whose
-        ``model_type`` names grounding as GroundingDINO; that backend is
-        not ported and raises."""
-        from tweediemix_tpu_torch.models.convert import load_detector, load_sam
-        from tweediemix_tpu_torch.utils.tokenizer import CLIPBPETokenizer
+        or directory and a detector, on ``device``. ``detector`` "owlvit":
+        the OWL-ViT base-patch32 detector and its tokenizer from an HF
+        directory (``vocab.json`` beside the weights or under
+        ``tokenizer/``); "dino": GroundingDINO Swin-B
+        (``DinoConfig.swin_b()``, fp32) from the original repo's ``.pth``
+        (``groundingdino_swinb_cogcoor.pth``) or an HF directory, with
+        ``vocab.txt`` beside it; "auto" takes a single file, or a directory
+        whose ``config.json`` ``model_type`` names grounding, as
+        GroundingDINO, else OWL-ViT. The detector loads first; a checkpoint
+        that does not load raises, and nothing falls back to the other
+        detector."""
+        from tweediemix_tpu_torch.models.convert import load_detector, load_dino, load_sam
+        from tweediemix_tpu_torch.utils.tokenizer import BertWordPieceTokenizer, CLIPBPETokenizer
 
         if detector == "auto":
             detector = "dino" if _looks_like_dino(detector_dir) else "owlvit"
-        if detector == "dino":
-            raise NotImplementedError(
-                "the GroundingDINO detector (models/dino.py, swin.py, bert.py) is not ported "
-                "to the torch package yet (ROADMAP item 13); pass an HF OWL-ViT directory "
-                "as --detector_dir with --detector owlvit")
-        if detector != "owlvit":
+        if detector not in ("owlvit", "dino"):
             raise ValueError(f"unknown detector {detector!r}; use 'owlvit', 'dino' or 'auto'")
         device = resolve_device(device)
+        if detector == "dino":
+            from tweediemix_tpu_torch.models.dino import DinoConfig, DinoDetector
+
+            cfg = DinoConfig.swin_b()
+            model = load_dino(detector_dir, cfg, device)
+            tok_dir = os.path.dirname(detector_dir) if os.path.isfile(detector_dir) else detector_dir
+            dino = DinoDetector(cfg, model, BertWordPieceTokenizer.from_dir(tok_dir))
+            sam = load_sam(sam_checkpoint, SAMConfig.vit_h(), device)
+            return cls(sam, box_threshold=box_threshold, dino=dino)
         det_cfg = DetectorConfig.owlvit_base_patch32()
         sam = load_sam(sam_checkpoint, SAMConfig.vit_h(), device)
         det = load_detector(detector_dir, det_cfg, device)
@@ -155,13 +169,16 @@ class LangSAM:
         image = image.to(self.device, torch.float32)
         h, w = image.shape[:2]
         chw = image.permute(2, 0, 1)
-        mean = torch.tensor(CLIP_IMAGE_MEAN, device=self.device)
-        std = torch.tensor(CLIP_IMAGE_STD, device=self.device)
-        det_size = self.detector.config.vision.image_size
-        det_img = (resize_bilinear(chw, det_size, det_size).permute(1, 2, 0) - mean) / std
-        max_len = self.detector.config.text.max_positions
-        ids = torch.tensor(self.tokenizer([text]), dtype=torch.long, device=self.device)[:, :max_len]
-        boxes, scores = self.detector(det_img[None], ids)
+        if self.dino is not None:
+            boxes, scores = self.dino(image, text)
+        else:
+            mean = torch.tensor(CLIP_IMAGE_MEAN, device=self.device)
+            std = torch.tensor(CLIP_IMAGE_STD, device=self.device)
+            det_size = self.detector.config.vision.image_size
+            det_img = (resize_bilinear(chw, det_size, det_size).permute(1, 2, 0) - mean) / std
+            max_len = self.detector.config.text.max_positions
+            ids = torch.tensor(self.tokenizer([text]), dtype=torch.long, device=self.device)[:, :max_len]
+            boxes, scores = self.detector(det_img[None], ids)
 
         sam_size = self.sam.config.image_size
         sam_img = resize_bilinear(chw, sam_size, sam_size).permute(1, 2, 0)

@@ -1,4 +1,5 @@
-"""CLIP BPE tokenizer and a hash tokenizer for tests (counterpart of
+"""CLIP BPE tokenizer, BERT WordPiece tokenizer (GroundingDINO's captions)
+and a hash tokenizer for tests (counterpart of
 ``tweediemix_tpu/utils/tokenizer.py``, copied so that the port imports
 nothing of the JAX package).
 
@@ -23,6 +24,7 @@ import html
 import json
 import os
 import re
+import unicodedata
 from typing import Dict, List, Optional
 
 
@@ -251,6 +253,88 @@ class HashTokenizer:
         return full
 
     def __call__(self, texts):
+        if isinstance(texts, str):
+            texts = [texts]
+        return [self.encode(t) for t in texts]
+
+
+class BertWordPieceTokenizer:
+    """BERT WordPiece tokenizer (uncased) for GroundingDINO's captions
+    (``models/dino.py``): lowercase, NFD with the accents (category Mn)
+    dropped, split at whitespace, punctuation and CJK ideographs, control
+    characters dropped, then greedy longest-match pieces (``##`` inside a
+    word, ``[UNK]`` for a word that does not split or is longer than 100
+    characters), wrapped in ``[CLS]``/``[SEP]``. Reads the checkpoint's
+    ``vocab.txt`` (bert-base-uncased's layout: one token per line, its id
+    the line number)."""
+
+    def __init__(self, vocab: Dict[str, int]):
+        self.vocab = vocab
+        self.cls_id = vocab["[CLS]"]
+        self.sep_id = vocab["[SEP]"]
+        self.unk_id = vocab["[UNK]"]
+
+    @classmethod
+    def from_dir(cls, path: str) -> "BertWordPieceTokenizer":
+        """``path`` is a directory holding ``vocab.txt``, or the file."""
+        vf = path if path.endswith("vocab.txt") else os.path.join(path, "vocab.txt")
+        with open(vf, encoding="utf-8") as f:
+            vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+        return cls(vocab)
+
+    @staticmethod
+    def _basic(text: str) -> List[str]:
+        text = unicodedata.normalize("NFD", text.lower())
+        text = "".join(c for c in text if unicodedata.category(c) != "Mn")
+        out, cur = [], []
+        for ch in text:
+            cat = unicodedata.category(ch)
+            if ch.isspace():
+                if cur:
+                    out.append("".join(cur))
+                    cur = []
+            elif cat.startswith("P") or (0x4E00 <= ord(ch) <= 0x9FFF):
+                if cur:
+                    out.append("".join(cur))
+                    cur = []
+                out.append(ch)
+            elif cat.startswith("C"):
+                continue
+            else:
+                cur.append(ch)
+        if cur:
+            out.append("".join(cur))
+        return out
+
+    def _wordpiece(self, word: str) -> List[int]:
+        if len(word) > 100:
+            return [self.unk_id]
+        ids, start = [], 0
+        while start < len(word):
+            end = len(word)
+            piece = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    piece = self.vocab[sub]
+                    break
+                end -= 1
+            if piece is None:
+                return [self.unk_id]
+            ids.append(piece)
+            start = end
+        return ids
+
+    def encode(self, text: str) -> List[int]:
+        ids = [self.cls_id]
+        for word in self._basic(text):
+            ids.extend(self._wordpiece(word))
+        ids.append(self.sep_id)
+        return ids
+
+    def __call__(self, texts) -> List[List[int]]:
         if isinstance(texts, str):
             texts = [texts]
         return [self.encode(t) for t in texts]

@@ -9,7 +9,9 @@ JAX or of the JAX package. Phases:
 1. the card's name and power limit, torch/CUDA versions, the kernels'
    build (one nvcc per source, sm_90a, all started together) and its time;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the same inputs at the main paths' shapes and the edge cases, with its
+   the same inputs at the main paths' shapes and the edge cases (for the
+   bf16 kernel also S = 256 and S = 200, the lengths
+   ``TWEEDIEMIX_FLASH_MIN_S`` can send it), with its
    time, the plain version's, one PyTorch library call's (a yardstick only)
    and the bound (for the bf16 kernel also the softmax's exp2 floor and the
    wrapper's host cost per call); the int8 kernel also against exact fp32
@@ -68,11 +70,25 @@ JAX or of the JAX package. Phases:
    remat (saving at 5), then 3 steps with ``--train_text_encoder
    --use_8bit_adam``, each run's launches per step counted, its trainable
    leaves moved and frozen ones bit-equal, one step profiled, and the
-   trained delta sampled by the fusion CLI; the directory is deleted (the
+   trained delta sampled by the fusion CLI; then the warm server
+   (``cli/serve.main`` in process, ``phase_cli_serve``): five JSONL lines
+   (the one-shot CLI's seed, whose PNG must equal the one-shot CLI's pixel
+   for pixel, a malformed request answered with an error line, a warm
+   request at a new seed, a "||" pair at two seeds, an empty line), each
+   request's latency, warm flag and flash launches; the fusion CLI with
+   ``--profile`` cut to 4 steps (``phase_cli_profile``: phase timings, a
+   Chrome trace whose flash-kernel events equal the expected launches,
+   classified by ``utils/profiling.py``); CLIP-T and CLIP-I of the served
+   PNGs against the training images from a CLIP ViT-L/14-width directory of
+   random weights (``phase_cli_evaluate``: the evaluate CLI, then the card's
+   fp32 scores held to the CPU's); the demo's predict function on the SAM
+   and OWL-ViT checkpoints (``phase_app``: its overlay equal to
+   ``draw_image`` over ``LangSAM.predict``); the directory is deleted (the
    fusion PNG is kept for phase 7);
 5. W8A8 main path: the same sample with ``quant="int8"`` at four seeds,
    static per-site activation scales calibrated on the card for these
-   weights (timesteps 999/501/1 at batch 4, margin 1.25) and the int8
+   weights by ``tools/calibrate_quant.py::calibrate_unet`` (timesteps
+   999/501/1 at batch 4, margin 1.25) and the int8
    attention core on (``TWEEDIEMIX_FLASH_INT8=1``): one warm and one timed
    call, the int8 kernel's and its quantise passes' launch counts checked
    and the bf16 kernel's held at 0, then one batch-4 call profiled with the int8 core on and off;
@@ -171,6 +187,10 @@ MAIN_SHAPES = [(40, 4096, 4096, 64), (20, 4096, 4096, 64), (80, 1024, 1024, 64),
 EDGE_SHAPES = [(2, 300, 300, 128), (8, 1024, 1024, 256), (4, 1024, 77, 64), (2, 129, 129, 64),
                (1, 1000, 4100, 64), (320, 129, 77, 64), (2, 1000, 129, 128), (2, 129, 4100, 128),
                (2, 129, 1000, 256)]
+# below 1024 tokens, where TWEEDIEMIX_FLASH_MIN_S sends self-attention to the
+# kernel: the video UNet's 256-token level (32 frames x 20 heads) and an S
+# that is not a multiple of the kernel's 128-row query tile
+S256_SHAPES = [(640, 256, 256, 64), (80, 200, 200, 64)]
 # the W8A8 main path's four shapes at four seeds (the sampler folds seeds
 # into the rows of each call)
 INT8_MAIN_SHAPES = [(160, 4096, 4096, 64), (80, 4096, 4096, 64), (320, 1024, 1024, 64),
@@ -271,7 +291,7 @@ def phase_kernels() -> list:
     )
 
     results = []
-    for bh, sq, sk, dh in MAIN_SHAPES + EDGE_SHAPES + VIDEO_FLASH_SHAPES:
+    for bh, sq, sk, dh in MAIN_SHAPES + EDGE_SHAPES + VIDEO_FLASH_SHAPES + S256_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(bh * 7 + sq + sk + dh)
         q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
                    for s in (sq, sk, sk))
@@ -791,11 +811,13 @@ def write_checkpoint_dir(root, configs, seed, device) -> dict:
     return dict(params=counts, bytes=written)
 
 
-def write_tokenizers(root, vocab_size=49408) -> int:
+def write_tokenizers(root, vocab_size=49408,
+                     folders=(("tokenizer", "<|endoftext|>"), ("tokenizer_2", "!"))) -> int:
     """``tokenizer/`` and ``tokenizer_2/`` with a synthetic CLIP vocabulary
     of ``vocab_size`` entries (the 256 bytes, each with ``</w>``, a few
     merges, filler, then ``<|startoftext|>`` and ``<|endoftext|>`` last);
-    the second pads with "!", as SDXL's does. Returns the bytes written."""
+    the second pads with "!", as SDXL's does (``folders``: (folder, pad
+    token) pairs; "" is ``root`` itself). Returns the bytes written."""
     from tweediemix_tpu_torch.utils.tokenizer import bytes_to_unicode
 
     chars = list(bytes_to_unicode().values())
@@ -809,8 +831,8 @@ def write_tokenizers(root, vocab_size=49408) -> int:
     vocab["<|startoftext|>"] = vocab_size - 2
     vocab["<|endoftext|>"] = vocab_size - 1
     written = 0
-    for folder, pad in (("tokenizer", "<|endoftext|>"), ("tokenizer_2", "!")):
-        os.makedirs(os.path.join(root, folder))
+    for folder, pad in folders:
+        os.makedirs(os.path.join(root, folder), exist_ok=not folder)
         files = {"vocab.json": json.dumps(vocab), "merges.txt": "#version: 0.2\n" + "\n".join(merges),
                  "tokenizer_config.json": json.dumps({"pad_token": pad, "model_max_length": 77})}
         for name, text in files.items():
@@ -1007,10 +1029,313 @@ def phase_cli(keep_png: str) -> dict:
         stats["segmentation"] = phase_cli_segmentation(root, argv, expected)
         torch.cuda.empty_cache()
         stats["train"] = phase_cli_train(root, argv, deltas)
+        torch.cuda.empty_cache()
+        stats["serve"] = phase_cli_serve(root, argv, expected, os.path.join(out, pngs[0]), stats)
+        torch.cuda.empty_cache()
+        stats["profile"] = phase_cli_profile(root, argv)
+        torch.cuda.empty_cache()
+        stats["evaluate"] = phase_cli_evaluate(root, stats["serve"]["dir"],
+                                               os.path.join(root, "train_instance"))
+        torch.cuda.empty_cache()
+        stats["app"] = phase_app(os.path.join(root, "sam_vit_h.pth"),
+                                 os.path.join(root, "owlvit-base-patch32"), keep_png)
         return stats
     finally:
         fusion_sampling.build_pipeline = build_pipeline
         shutil.rmtree(root)
+
+
+def _arg(argv, name):
+    return argv[argv.index(f"--{name}") + 1]
+
+
+def phase_cli_serve(root, argv, expected, one_shot_png, one_shot) -> dict:
+    """The warm server (``cli/serve.py``) in process on ``phase_cli``'s SDXL
+    directory with its flags: ``a`` at the one-shot CLI's seed (its PNG must
+    be the one-shot CLI's ``one_shot_png``, pixel for pixel), ``bad`` with
+    two concepts for three (an error line), ``b`` at a new seed (warm), ``c``
+    a "||" pair at num_seeds 2 (a new geometry, not warm), then an empty
+    line. Each request's flash launches are counted between the lines."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from tweediemix_tpu_torch.cli import serve
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.utils.image import read_png
+
+    served = os.path.join(root, "served")
+    prompt, prompt_orig = _arg(argv, "prompt"), _arg(argv, "prompt_orig")
+    seed = int(_arg(argv, "seed"))
+    reqs = [
+        {"id": "a", "seed": seed, "output_path": served},
+        {"id": "bad", "prompt": "+".join(prompt.split("+")[:2]), "output_path": served},
+        {"id": "b", "seed": seed + 1, "output_path": served},
+        {"id": "c", "seed": seed + 2, "num_seeds": 2, "output_path": served,
+         "prompt": prompt + "||" + prompt.replace("running", "sitting"),
+         "prompt_orig": prompt_orig + "||" + prompt_orig.replace("running", "sitting")},
+    ]
+    before = []
+
+    def lines():  # the launch count before each line: the previous request's are the difference
+        for req in reqs + [None]:
+            before.append(flash_attention.launches)
+            yield "\n" if req is None else json.dumps(req) + "\n"
+
+    stdout, stderr = io.StringIO(), io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(stderr):
+        rc = serve.main(argv, stdin=lines(), stdout=stdout, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(stderr.getvalue().strip())
+    log(stdout.getvalue().strip())
+    if rc != 0:
+        fail(f"the server returned {rc}")
+    resp = [json.loads(line) for line in stdout.getvalue().splitlines()]
+    launches = [b - a for a, b in zip(before, before[1:])]
+    if [r.get("id") for r in resp] != ["a", "bad", "b", "c"]:
+        fail(f"the server answered {resp}")
+    status = [r["status"] for r in resp]
+    warm = [r.get("warm") for r in resp]
+    if status != ["ok", "error", "ok", "ok"] or warm != [False, None, True, False]:
+        fail(f"server status {status}, warm {warm}: expected ok/error/ok/ok, false/-/true/false")
+    if launches != [expected, 0, expected, expected]:
+        fail(f"server flash launches per request {launches}, expected {expected} per ok request")
+    if [len(r["files"]) for r in resp if r["status"] == "ok"] != [1, 1, 2]:
+        fail(f"server files {[r.get('files') for r in resp]}")
+    header, a_pixels = read_png(resp[0]["files"][0])
+    _, one_shot_pixels = read_png(one_shot_png)
+    a_equal = bool(np.array_equal(a_pixels, one_shot_pixels))
+    for r in resp[2:]:
+        for f in r["files"]:
+            h, px = read_png(f)
+            if h != header or px.min() == px.max():
+                fail(f"served PNG {f}: {h}, pixels {px.min()}..{px.max()}")
+    timings = json.loads(stderr.getvalue().split("timings: ", 1)[1].splitlines()[0])
+    stats = dict(
+        gpu=gpu_name_and_power(), dir=served, wall_s=wall, load_s=timings["load_s"],
+        build_s=timings["build_s"], latency_s=[r.get("latency_s") for r in resp], warm=warm,
+        launches=launches, max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        a_equals_one_shot_png=a_equal,
+        a_max_pixel_diff=int(np.abs(a_pixels.astype(int) - one_shot_pixels.astype(int)).max()),
+        one_shot_load_build_sample_s=one_shot["load_s"] + one_shot["build_s"] + one_shot["s_per_image"],
+        one_shot_cli_wall_s=one_shot["cli_wall_s"], error=resp[1]["error"])
+    log(f"cli serve: {json.dumps(stats)}")
+    if not a_equal:
+        fail("the server's PNG for the one-shot CLI's seed differs from the one-shot CLI's")
+    return stats
+
+
+def phase_cli_profile(root, argv) -> dict:
+    """The fusion CLI with ``--profile`` on ``phase_cli``'s SDXL directory,
+    cut to ``MASK_DIR_FUSION``'s 4 steps without resampling (t_cond 0.5 and
+    one jumping step, so that the 4-step schedule is valid; a 50-step trace
+    is hundreds of MB):
+    ``phase_timings.json`` holds ``sample_1_seeds``, the Chrome trace holds
+    one flash-kernel event per expected launch, and the profiling module's
+    classifier puts them under flash_attention."""
+    import torch
+
+    from tweediemix_tpu_torch.cli import fusion_sampling
+    from tweediemix_tpu_torch.fusion.sampler import FusionConfig
+    from tweediemix_tpu_torch.models.unet2d import UNetConfig
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.utils.profiling import (
+        TRACE_FILE,
+        chrome_trace_kernels,
+        device_breakdown,
+    )
+
+    cut = MASK_DIR_FUSION
+    fcfg = FusionConfig(**dict(CLI_FUSION, **cut))
+    expected = expected_flash_launches(UNetConfig.sdxl(concept_slots=4, dtype=torch.bfloat16), fcfg)
+    prof_dir = os.path.join(root, "profile")
+    pargv = _flag(argv, "output_path", os.path.join(root, "out_profile")) + ["--profile", prof_dir]
+    for flag, value in cut.items():
+        pargv = _flag(pargv, flag, value)
+    flash_attention.launches = 0
+    rc, text, wall = run_cli(fusion_sampling.main, pargv)
+    launches = flash_attention.launches
+    if rc != 0 or launches != expected:
+        fail(f"the fusion CLI with --profile returned {rc} with {launches} flash launches "
+             f"(expected {expected})")
+    with open(os.path.join(prof_dir, "phase_timings.json")) as f:
+        phases = json.load(f)
+    trace_path = os.path.join(prof_dir, TRACE_FILE)
+    if "sample_1_seeds" not in phases or not os.path.exists(trace_path):
+        fail(f"--profile wrote {sorted(os.listdir(prof_dir))}, phases {phases}")
+    kernels = chrome_trace_kernels(trace_path)
+    named = sum("flash_fwd_kernel" in n for n, _ in kernels)
+    breakdown = device_breakdown(kernels, phases["sample_1_seeds"] * 1e3)
+    classified = breakdown["by_class_count"].get("flash_attention", 0)
+    stats = dict(gpu=gpu_name_and_power(), cli_wall_s=wall, phases=phases,
+                 timings=json.loads(text.split("timings: ", 1)[1].splitlines()[0]),
+                 trace_bytes=os.path.getsize(trace_path), kernel_events=len(kernels),
+                 expected_launches=expected, launches=launches, trace_flash_events=named,
+                 trace_flash_classified=classified, breakdown=breakdown)
+    log(f"cli profile: {json.dumps(stats)}")
+    if named != expected or classified != expected:
+        fail(f"the trace holds {named} flash-kernel events, {classified} classified as "
+             f"flash_attention; expected {expected}")
+    return stats
+
+
+# openai/clip-vit-large-patch14: the text tower (SDXL's text_encoder) and a
+# ViT-L/14 at 224², both projected to 768, and the contrastive temperature
+CLIP_L14_PUBLISHED_PARAMS = 427_616_513
+CLIP_SCORE_TOL = 1e-4  # each score, card fp32 (TF32 off) against the CPU
+CLIP_EVAL_PROMPT = "photo of a <cat1> cat and a <dog1> dog running"
+
+
+def write_clip_model_dir(root, seed, device) -> dict:
+    """An HF CLIPModel directory at openai/clip-vit-large-patch14's widths
+    with seeded random weights in fp32 (one ``model.safetensors`` holding
+    both towers, the projections, ``logit_scale`` and the position-id
+    buffers), its ``config.json`` and the synthetic BPE files of
+    ``write_tokenizers``. Returns the parameters and bytes written."""
+    import torch
+
+    from tweediemix_tpu_torch.models.clip import (
+        CLIPTextConfig,
+        CLIPTextModel,
+        CLIPVisionConfig,
+        CLIPVisionModel,
+    )
+    from tweediemix_tpu_torch.models.convert import save_safetensors
+
+    tcfg = CLIPTextConfig(projection_dim=768)
+    vcfg = CLIPVisionConfig(projection_dim=768)
+    torch.manual_seed(seed)
+    state = {}
+    for module in (CLIPTextModel(tcfg, device=device), CLIPVisionModel(vcfg, device=device)):
+        state.update(module.state_dict())
+    state["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    params = sum(t.numel() for t in state.values())
+    state["text_model.embeddings.position_ids"] = torch.arange(tcfg.max_positions)[None]
+    state["vision_model.embeddings.position_ids"] = torch.arange(vcfg.num_patches + 1)[None]
+    os.makedirs(root)
+    written = save_safetensors(os.path.join(root, "model.safetensors"), state)
+    config = dict(  # HF's names; its historical text eos_token_id of 2
+        projection_dim=tcfg.projection_dim, logit_scale_init_value=2.6592,
+        text_config=dict(vocab_size=tcfg.vocab_size, hidden_size=tcfg.hidden_size,
+                         intermediate_size=tcfg.intermediate_size,
+                         num_hidden_layers=tcfg.num_layers, num_attention_heads=tcfg.num_heads,
+                         max_position_embeddings=tcfg.max_positions, hidden_act=tcfg.hidden_act,
+                         eos_token_id=2),
+        vision_config=dict(image_size=vcfg.image_size, patch_size=vcfg.patch_size,
+                           hidden_size=vcfg.hidden_size, intermediate_size=vcfg.intermediate_size,
+                           num_hidden_layers=vcfg.num_layers, num_attention_heads=vcfg.num_heads,
+                           hidden_act=vcfg.hidden_act))
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(config, f)
+    written += write_tokenizers(root, folders=(("", "<|endoftext|>"),))
+    return dict(params=params, bytes=written)
+
+
+def phase_cli_evaluate(root, served_dir, instance_dir) -> dict:
+    """CLIP-T and CLIP-I of the served PNGs against the training phase's
+    instance images, from a CLIP ViT-L/14-width directory of seeded random
+    weights: the evaluate CLI on the card, then the scores on the card and
+    the CPU held within ``CLIP_SCORE_TOL``."""
+    import torch
+
+    from tweediemix_tpu_torch.cli import evaluate
+    from tweediemix_tpu_torch.evaluation import CLIPScorer, load_images
+
+    clip_dir = os.path.join(root, "clip-vit-large-patch14")
+    t0 = time.perf_counter()
+    written = write_clip_model_dir(clip_dir, seed=8, device="cuda")
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if written["params"] != CLIP_L14_PUBLISHED_PARAMS:
+        fail(f"CLIP directory holds {written['params']} parameters, "
+             f"openai/clip-vit-large-patch14 {CLIP_L14_PUBLISHED_PARAMS}")
+    modifiers = ["<cat1>", "<dog1>"]
+    argv = ["--images", served_dir, "--prompt", CLIP_EVAL_PROMPT, "--modifier_token",
+            "+".join(modifiers), "--concept_images", instance_dir, "--concepts", "cat",
+            "--clip_dir", clip_dir]
+    torch.cuda.reset_peak_memory_stats()
+    rc, text, wall = run_cli(evaluate.main, argv)
+    if rc != 0:
+        fail(f"the evaluate CLI returned {rc}")
+    line = json.loads(text.strip().splitlines()[-1])
+    max_memory = torch.cuda.max_memory_allocated() / 2**30
+    images, instances = load_images(served_dir), load_images(instance_dir)
+    if line["num_images"] != len(images) or set(line.get("clip_i", {})) != {"cat"}:
+        fail(f"the evaluate CLI printed {line}")
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        scorer = CLIPScorer.from_pretrained(clip_dir, device=device)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = evaluate.scores(scorer, images, [CLIP_EVAL_PROMPT], modifiers, [instance_dir], ["cat"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        got[device] = dict(res, load_s=load_s, score_s=time.perf_counter() - t0)
+        del scorer
+    torch.cuda.empty_cache()
+    err = max(abs(got["cuda"]["clip_t"] - got["cpu"]["clip_t"]),
+              abs(got["cuda"]["clip_i"]["cat"] - got["cpu"]["clip_i"]["cat"]))
+    stats = dict(gpu=gpu_name_and_power(), params=written["params"], bytes=written["bytes"],
+                 write_s=write_s, cli_wall_s=wall, cli_line=line, max_memory_gib=max_memory,
+                 num_images=len(images), num_instance_images=len(instances),
+                 card=got["cuda"], cpu=got["cpu"], max_abs_score_err=err)
+    log(f"cli evaluate: {json.dumps(stats)}")
+    if not all(math.isfinite(v) for v in (got["cuda"]["clip_t"], got["cuda"]["clip_i"]["cat"])):
+        fail("non-finite CLIP scores")
+    if err > CLIP_SCORE_TOL:
+        fail(f"CLIP scores on the card vs the CPU differ by {err:.3e} (limit {CLIP_SCORE_TOL})")
+    if abs(round(got["cuda"]["clip_t"], 4) - line["clip_t"]) > CLIP_SCORE_TOL:
+        fail(f"the CLI's clip_t {line['clip_t']} is not the scorer's {got['cuda']['clip_t']}")
+    return stats
+
+
+def phase_app(sam_path, det_dir, png) -> dict:
+    """The demo's predict function (``cli/app.py``, preset ``sam``) on the
+    card from ``phase_cli_segmentation``'s SAM ViT-H ``.pth`` and OWL-ViT
+    directory, on the fusion PNG: per phrase its overlay must equal
+    ``draw_image`` over ``LangSAM.predict``'s kept masks and boxes."""
+    import numpy as np
+    import torch
+
+    from tweediemix_tpu_torch.cli import app
+    from tweediemix_tpu_torch.segmentation.viz import draw_image
+    from tweediemix_tpu_torch.utils.image import read_image
+
+    t0 = time.perf_counter()
+    predict = app.make_predict_fn("sam", sam_path, det_dir, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    image = read_image(png).astype(np.float32) / 255.0
+    out = {}
+    for text in SEG_CONCEPTS.split("+"):
+        overlay = predict(image, text, box_threshold=0.2)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            overlay = predict(image, text, box_threshold=0.2)
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        masks, boxes, scores, valid = predict.lang_sam.predict(torch.from_numpy(image), text,
+                                                               box_threshold=0.2)
+        keep = valid.cpu().numpy()
+        want = draw_image(image, masks.float().cpu().numpy()[keep], boxes.cpu().numpy()[keep])
+        out[text] = dict(ms_per_predict=ms, kept=int(keep.sum()), top_score=float(scores.max()),
+                         equal=bool(np.array_equal(overlay, want)),
+                         changed_share=float((overlay != image).any(-1).mean()))
+        if overlay.shape != image.shape or not out[text]["equal"]:
+            fail(f"the demo's overlay for {text!r} differs from draw_image over LangSAM.predict")
+    stats = dict(gpu=gpu_name_and_power(), load_s=load_s, phrases=out)
+    log(f"app: {json.dumps(stats)}")
+    if not any(v["kept"] for v in out.values()):
+        fail("the demo kept no box for any phrase")
+    del predict
+    torch.cuda.empty_cache()
+    return stats
 
 
 # segment-anything's prompt-encoder tensors for point and mask prompts, which
@@ -1755,7 +2080,8 @@ def phase_w8a8_main_path() -> dict:
         flash_attention_int8,
         quantize_qkv_int8_fused,
     )
-    from tweediemix_tpu_torch.ops.quant import calibrate, load_static_scales, quant_sites
+    from tweediemix_tpu_torch.ops.quant import load_static_scales, quant_sites
+    from tweediemix_tpu_torch.tools.calibrate_quant import calibrate_unet, probe_inputs
 
     n, seeds = 3, 4
     ucfg = UNetConfig.sdxl(concept_slots=n + 1, dtype=torch.bfloat16, quant="int8")
@@ -1771,18 +2097,11 @@ def phase_w8a8_main_path() -> dict:
     log(f"W8A8 main path: UNet {unet_gib:.3f} GiB on the card ({len(quant_sites(pipe.unet))} "
         f"int8 sites), built in {time.perf_counter() - t0:.1f} s")
 
-    # static scales for these weights, as tools/calibrate_quant.py makes them
-    h, w = fcfg.latent_hw
+    # static scales for these weights, by the calibration tool's function
+    h, _ = fcfg.latent_hw
     b = n + 1
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((b, h, w, 4), generator=gen, device="cuda")
-    ctx = 0.1 * torch.randn((b, 77, 2048), generator=gen, device="cuda")
-    pooled = 0.1 * torch.randn((b, 1280), generator=gen, device="cuda")
-    tids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]], device="cuda").expand(b, 6)
-    idx = torch.arange(b, device="cuda")
     t0 = time.perf_counter()
-    table = calibrate(pipe.unet, [(x, t, ctx, pooled, tids, idx) for t in (999, 501, 1)],
-                      margin=1.25)
+    table = calibrate_unet(pipe.unet, probe_inputs(b, h, 77, 2048, 1280, seed=0), margin=1.25)
     found = load_static_scales(pipe.unet, table)
     vals = sorted(table.values())
     log(f"W8A8 calibration: {found} sites in {time.perf_counter() - t0:.2f} s, abs-max x 1.25 "
@@ -2477,6 +2796,7 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention
     from tweediemix_tpu_torch.training import trainer
     from tweediemix_tpu_torch.utils.image import read_png, write_png
+    from tweediemix_tpu_torch.utils.profiling import device_breakdown, profiler_kernels
 
     inst, cls = os.path.join(root, "train_instance"), os.path.join(root, "train_class")
     os.makedirs(inst)
@@ -2561,7 +2881,8 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
                          delta_bytes=os.path.getsize(delta_path), files=sorted(os.listdir(out)))
             log(f"cli train {label}: {json.dumps(stats)}")
             if "profile" in kept:
-                stats["profile"] = device_breakdown(kept["profile"], parsed["timings"]["step_s"] * 1e3)
+                stats["profile"] = device_breakdown(profiler_kernels(kept["profile"]),
+                                                    parsed["timings"]["step_s"] * 1e3)
                 log(f"profile train step {label} (step {TRAIN_PROFILE_STEP}, idle against the "
                     f"median s/step): {json.dumps(stats['profile'])}")
             del kept
@@ -2617,28 +2938,6 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
         trainer.make_full_train_step = make_step
 
 
-KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
-    ("short_attention", ("short_attn_kernel",)),
-    ("flash_attention_int8", ("flash_int8_wgmma_kernel", "absmax_kernel", "quantize_kernel<")),
-    ("flash_attention", ("flash_fwd_kernel",)),
-    ("layout", ("nchwToNhwc", "nhwcToNchw")),
-    ("convolution", ("fprop", "conv", "dgrad", "winograd")),
-    ("gemm_int8", ("s8s8", "i8i8", "imma", "_s8_", "_i8_", "int8")),
-    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
-    ("norm", ("norm", "moments")),  # GroupNorm's statistics: RowwiseMomentsCUDAKernel
-    ("softmax", ("softmax",)),
-    ("elementwise/copy", ("elementwise", "vectorized", "copy", "cat", "fill", "reduce", "index")),
-)
-
-
-def _kernel_class(name: str) -> str:
-    low = name.lower()
-    for cls, keys in KERNEL_CLASSES:
-        if any(k.lower() in low for k in keys):
-            return cls
-    return "other"
-
-
 def profile_call(pipe, label, ctx, pooled, idx) -> dict:
     """One fusion UNet call (cross-K/V cache on), profiled by ``profile_fn``."""
     import torch
@@ -2657,6 +2956,8 @@ def profile_fn(label, call) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from tweediemix_tpu_torch.utils.profiling import device_breakdown, profiler_kernels
+
     with torch.inference_mode():
         call()
         torch.cuda.synchronize()
@@ -2671,33 +2972,9 @@ def profile_fn(label, call) -> dict:
             call()
             torch.cuda.synchronize()
             profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    out = dict(wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, **device_breakdown(prof, wall_ms))
+    out = dict(wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, **device_breakdown(profiler_kernels(prof), wall_ms))
     log(f"profile {label}: {json.dumps(out)}")
     return out
-
-
-def device_breakdown(prof, wall_ms: float) -> dict:
-    """A finished torch.profiler run's device time by kernel class, its top
-    kernels, and the device's idle share against ``wall_ms``."""
-    from torch.autograd import DeviceType
-
-    by_name, by_class = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us / 1e3)
-        cls = _kernel_class(e.name)
-        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
-    busy_ms = sum(by_class.values())
-    top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:12]
-    return dict(
-        device_busy_ms=busy_ms,
-        device_idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
-        by_class_ms={k: round(v, 3) for k, v in sorted(by_class.items(), key=lambda i: -i[1])},
-        top_kernels=[dict(name=n[:110], count=c, ms=round(t, 3)) for n, (c, t) in top],
-    )
 
 
 def main() -> None:
@@ -2747,6 +3024,8 @@ def main() -> None:
               "tweediemix_tpu/ops/flash_attention.py:37", main_path["runs"][0]["launches"],
               kernel_rows, video_launches=video["runs"][-1]["launches"]["flash"],
               cli_launches=cli["launches"], cli_sam_launches=cli["segmentation"]["fusion"]["launches"],
+              cli_serve_launches=cli["serve"]["launches"],
+              cli_profile_launches=cli["profile"]["launches"],
               cli_dino_launches={k: v["launches"] for k, v in cli["segmentation"]["dino"]["fusion"].items()},
               cli_video_launches=cli_runs["bf16"]["launches"]["flash"],
               train_launches=cli["train"]["cd"]["launches_per_step"],

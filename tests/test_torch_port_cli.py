@@ -281,7 +281,10 @@ def test_cli_heuristic_segmentation_and_seed_sets(tmp_path, capsys):
     (["--concepts", "cat+dog"], ValueError, "same number of"),
     (["--num_seeds", "3", "--prompt", PROMPT + "||" + PROMPT], ValueError, "must equal --num_seeds"),
     (["--mesh_devices", "2"], NotImplementedError, "ROADMAP item 16"),
-    (["--profile", "prof"], NotImplementedError, "ROADMAP item 16"),
+    # --profile is ported: a trace directory that cannot be made raises before
+    # anything is built (the id keeps its earlier name)
+    pytest.param(["--profile", __file__], FileExistsError, re.escape(__file__),
+                 id="extra3-NotImplementedError-ROADMAP item 16"),
     # GroundingDINO asked for with a checkpoint that is not there, or sniffed
     # from a single file that is not a checkpoint: its load raises naming the
     # file, before SAM loads (the two ids keep their earlier names)

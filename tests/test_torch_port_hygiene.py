@@ -40,7 +40,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "cli.run_video", "cli.train", "training.custom_diffusion", "training.trainer",
                  "training.optim", "training.adam8bit", "training.lr_schedules", "training.data",
                  "training.augment", "training.class_gen", "training.retrieve", "utils.logging",
-                 "models.swin", "models.bert", "models.dino"):
+                 "models.swin", "models.bert", "models.dino", "cli.serve", "evaluation",
+                 "cli.evaluate", "utils.profiling", "segmentation.viz", "cli.app",
+                 "tools.calibrate_quant"):
         assert f"tweediemix_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -175,6 +177,22 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
                                                   detector="dino"),
                   lambda: make_segment_fn("a cat", "out", "sam", sam_checkpoint="sam.pth",
                                           detector_dir="groundingdino_swinb_cogcoor.pth")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+    import io
+
+    from tweediemix_tpu_torch.cli import app, evaluate, serve
+    from tweediemix_tpu_torch.evaluation import CLIPScorer
+    from tweediemix_tpu_torch.tools import calibrate_quant
+
+    fusion_flags = ["--model_preset", "tiny", "--concepts", "a+b", "--modifier_token", "<a>+<b>"]
+    for build in (lambda: serve.main(fusion_flags, stdin=io.StringIO('{"seed": 1}\n'),
+                                     stdout=io.StringIO()),
+                  lambda: evaluate.main(["--images", "gen", "--prompt", "a cat",
+                                         "--model_preset", "tiny"]),
+                  CLIPScorer.tiny, lambda: CLIPScorer.from_pretrained("clip"),
+                  lambda: app.make_predict_fn("sam-random"),
+                  lambda: calibrate_quant.main(["--micro", "--out", "scales.json"])):
         with pytest.raises(RuntimeError, match="cuda"):
             build()
 

@@ -125,6 +125,25 @@ def test_attention_dispatch_launches_kernel_on_card():
     assert flash_attention.launches == before + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,dh", [(640, 256, 64), (80, 200, 64), (2, 257, 128)])
+def test_flash_min_s_routes_short_self_attention_to_the_kernel_on_card(monkeypatch, bh, s, dh):
+    """Under TWEEDIEMIX_FLASH_MIN_S the kernel takes S below 1024: the video
+    UNet's 256-token level (BH = 32 frames x 20 heads) and S that are not
+    a multiple of its 128-row query tile, against its plain version."""
+    _card()
+    monkeypatch.setenv("TWEEDIEMIX_FLASH_MIN_S", "128")
+    gen = torch.Generator(device="cuda").manual_seed(bh + s + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    before = flash_attention.launches
+    out = attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    ref = flash_attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
 def _copy_sources(name, dst):
     """Copy ``csrc/<name>.cu`` and the headers it includes into ``dst``;
     returns the copied source's text."""

@@ -140,3 +140,93 @@ def test_lora_delta_matches_jax():
     _close(got, want)
     assert float(got[0].abs().max()) == 0.0
 
+
+
+# -- the reference's attention knobs (tests/test_attention.py:270-310) ------------
+
+
+def test_xla_knob_sends_a_flash_site_to_the_math_path(monkeypatch):
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(_randn(rng, (2, 1024, 64), 0.5)) for _ in range(3))
+    assert port_attn.uses_flash(1024, 1024, 64)
+    calls = []
+    monkeypatch.setattr(port_attn, "flash_attention", lambda *a, **kw: calls.append(1))
+    monkeypatch.setenv("TWEEDIEMIX_ATTENTION", "xla")
+    assert not port_attn.uses_flash(1024, 1024, 64)
+    got = port_attn.attention(q, k, v)
+    assert calls == []
+    _close(got, port_attn.math_attention(q, k, v, 64**-0.5), atol=0, rtol=0)
+    monkeypatch.setenv("TWEEDIEMIX_ATTENTION", "auto")
+    port_attn.attention(q, k, v)
+    assert calls == [1]
+
+
+@pytest.mark.parametrize("mode", ["auto", "flash"])
+def test_flash_min_s_sends_s256_to_the_flash_plain_version(monkeypatch, mode):
+    """Under TWEEDIEMIX_FLASH_MIN_S=256 an S = 256 site takes the flash
+    path (its plain version on the CPU), equal to the JAX package's
+    ``attention(..., interpret=True)`` under the same environment; below the
+    threshold, and at the default, it stays on the math path."""
+    rng = np.random.default_rng(22)
+    q, k, v = (_randn(rng, (2, 256, 64), 0.5) for _ in range(3))
+    monkeypatch.setenv("TWEEDIEMIX_ATTENTION", mode)
+    if mode == "auto":
+        assert not port_attn.uses_flash(256, 256, 64)
+    monkeypatch.setenv("TWEEDIEMIX_FLASH_MIN_S", "256")
+    assert port_attn.uses_flash(256, 256, 64)
+    assert not port_attn.uses_flash(256, 255, 64)
+    assert port_attn.uses_flash(128, 256, 64) == (mode == "flash")
+    seen = []
+    monkeypatch.setattr(port_attn, "flash_attention",
+                        lambda *a, **kw: seen.append(1) or flash_attention(*a, **kw))
+    got = port_attn.attention(*map(torch.from_numpy, (q, k, v)))
+    assert seen == [1]
+    monkeypatch.setattr(jax_attn.jax, "default_backend", lambda: "tpu")  # the auto gate's backend
+    want = jax_attn.attention(q, k, v, interpret=True)
+    _close(got, want)
+
+
+def test_flash_knob_raises_on_a_head_dim_the_kernel_does_not_take(monkeypatch):
+    rng = np.random.default_rng(23)
+    q = torch.from_numpy(_randn(rng, (2, 1024, 40)))
+    assert not port_attn.uses_flash(1024, 1024, 40)
+    monkeypatch.setenv("TWEEDIEMIX_ATTENTION", "flash")
+    with pytest.raises(ValueError, match="dh 40"):
+        port_attn.attention(q, q, q)
+    k77 = torch.from_numpy(_randn(rng, (2, 77, 40)))
+    assert port_attn.attention(q, k77, k77).shape == q.shape  # sk below the threshold: math
+    monkeypatch.setenv("TWEEDIEMIX_ATTENTION", "fast")
+    with pytest.raises(ValueError, match="TWEEDIEMIX_ATTENTION"):
+        port_attn.uses_flash(1024, 1024, 64)
+
+
+@pytest.mark.parametrize("bh,sq,sk,dh", [(8, 16, 16, 64), (2, 256, 77, 64)])
+def test_bf16_scores_branch_matches_jax(monkeypatch, bh, sq, sk, dh):
+    """TWEEDIEMIX_BF16_SCORES_MAX_SK=128: bf16 inputs with sk <= 128 take
+    the bf16-score branch, equal to the JAX package's ``_xla_attention``
+    under the same setting to one bf16 rounding of the output (2^-8 of max
+    |out|); at the default (0) the branch is off and the port's fp32-softmax
+    result is returned."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(bh + sq + sk)
+    q, k, v = (_randn(rng, (bh, s, dh)) for s in (sq, sk, sk))
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    default = port_attn.math_attention(qb, kb, vb, dh**-0.5)
+    monkeypatch.setenv("TWEEDIEMIX_BF16_SCORES_MAX_SK", "128")
+    got = port_attn.attention(qb, kb, vb)
+    want = np.asarray(jax_attn._xla_attention(qj, kj, vj, dh**-0.5), np.float32)
+    assert got.dtype == torch.bfloat16
+    tol = 2.0**-8 * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
+    assert not torch.equal(got, default)  # the branch is taken
+    monkeypatch.setenv("TWEEDIEMIX_BF16_SCORES_MAX_SK", str(sk - 1))
+    assert torch.equal(port_attn.attention(qb, kb, vb), default)
+    monkeypatch.delenv("TWEEDIEMIX_BF16_SCORES_MAX_SK")
+    assert torch.equal(port_attn.attention(qb, kb, vb), default)
+    # fp32 inputs never take the bf16 branch
+    monkeypatch.setenv("TWEEDIEMIX_BF16_SCORES_MAX_SK", "128")
+    qf = torch.from_numpy(q)
+    _close(port_attn.attention(qf, torch.from_numpy(k), torch.from_numpy(v)),
+           jax_attn._xla_attention(q, k, v, dh**-0.5))

@@ -25,8 +25,10 @@ reference's GroundingDINO Swin-B from its ``.pth`` or an HF directory with
 
 It runs on the card; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU. ``--device`` and ``--seg_gpu`` are accepted for the reference's
-scripts and only warn. Not ported yet: ``--mesh_devices`` > 1 and
-``--profile`` (ROADMAP item 16).
+scripts and only warn. ``--profile DIR`` writes a ``torch.profiler``
+Chrome trace of the sample and the PNG writes (``DIR/trace.json``) and
+``DIR/phase_timings.json``. Not ported yet: ``--mesh_devices`` > 1 (ROADMAP
+item 16f).
 """
 
 from __future__ import annotations
@@ -94,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "GroundingDINO Swin-B (dino), or sniff the checkpoint (auto: a "
                         "single file or a grounding config.json is GroundingDINO)")
     p.add_argument("--profile", type=str, default=None,
-                   help="directory for a profiler trace + phase timings (not ported yet)")
+                   help="directory for a torch.profiler Chrome trace (trace.json) of the "
+                        "sample and the PNG writes, and phase_timings.json")
     p.add_argument("--num_seeds", type=int, default=1,
                    help="sample this many seeds (seed..seed+n-1) in one batch")
     p.add_argument("--mesh_devices", type=int, default=1,
@@ -288,19 +291,19 @@ def build_pipeline(opt, device="cuda", timings=None):
 
 
 def main(argv=None, device="cuda") -> int:
+    import contextlib
+
     import torch
 
     from tweediemix_tpu_torch.device import resolve_device
     from tweediemix_tpu_torch.fusion.pipeline import save_image, stack_text_embeds
+    from tweediemix_tpu_torch.utils.profiling import PhaseTimer, trace
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)  # before anything is written
     if opt.mesh_devices > 1:
         raise NotImplementedError("--mesh_devices > 1 is not ported to the torch package yet "
-                                  "(ROADMAP item 16)")
-    if opt.profile:
-        raise NotImplementedError("--profile is not ported to the torch package yet "
-                                  "(ROADMAP item 16)")
+                                  "(ROADMAP item 16f)")
     for name in ("device", "seg_gpu"):
         if getattr(opt, name) is not None:
             print(f"warning: --{name} is accepted for reference-script compatibility "
@@ -309,6 +312,8 @@ def main(argv=None, device="cuda") -> int:
     out_all = opt.output_path_all or opt.output_path
     os.makedirs(opt.output_path, exist_ok=True)
     os.makedirs(out_all, exist_ok=True)
+    if opt.profile:
+        os.makedirs(opt.profile, exist_ok=True)
 
     timings = {}
     pipe = build_pipeline(opt, device, timings)
@@ -342,15 +347,22 @@ def main(argv=None, device="cuda") -> int:
     if opt.mask_dir is not None:
         fg_masks = load_fg_masks_from_dir(opt.mask_dir, opt.seg_concepts,
                                           opt.resolution_h, opt.resolution_w)
-    imgs = pipe.sample(embeds, seed=opt.seed, fg_masks=fg_masks, num_seeds=opt.num_seeds)
-    t2 = sync()
-    orig_names = [o.strip() for o in opt.prompt_orig.split("||")]
-    for i in range(imgs.shape[0]):
-        name = orig_names[i] if len(orig_names) > 1 else orig_names[0]
-        path = os.path.join(out_all, f"{name}_{opt.seed + i}.png")
-        save_image(imgs[i : i + 1], path)
-        print(f"saved {path}")
-    timings.update(encode_s=t1 - t0, sample_s=t2 - t1, phases=pipe.phase_seconds)
+    timer = PhaseTimer()
+    t_masks = time.perf_counter()
+    with trace(opt.profile) if opt.profile else contextlib.nullcontext():
+        profiler_start_s = time.perf_counter() - t_masks  # not the sample's
+        with timer.phase(f"sample_{opt.num_seeds}_seeds"):
+            imgs = pipe.sample(embeds, seed=opt.seed, fg_masks=fg_masks, num_seeds=opt.num_seeds)
+        t2 = sync()
+        orig_names = [o.strip() for o in opt.prompt_orig.split("||")]
+        for i in range(imgs.shape[0]):
+            name = orig_names[i] if len(orig_names) > 1 else orig_names[0]
+            path = os.path.join(out_all, f"{name}_{opt.seed + i}.png")
+            save_image(imgs[i : i + 1], path)
+            print(f"saved {path}")
+    if opt.profile:
+        timer.dump(os.path.join(opt.profile, "phase_timings.json"))
+    timings.update(encode_s=t1 - t0, sample_s=t2 - t1 - profiler_start_s, phases=pipe.phase_seconds)
     seg = pipe.sampler.segment_fn
     if fg_masks is None and hasattr(seg, "no_detections"):
         timings["segment_s"] = seg.seconds

@@ -675,6 +675,32 @@ def load_clip_vision_model(source, config, device="cuda"):
                            ignore=("vision_model.embeddings.position_ids",))
 
 
+# an HF CLIPModel's tensors that belong to each tower, and those of neither
+# (the contrastive temperature and the position-id buffers)
+CLIP_TEXT_PREFIXES = ("text_model.", "text_projection.")
+CLIP_VISION_PREFIXES = ("vision_model.", "visual_projection.")
+CLIP_MODEL_UNUSED = ("logit_scale", "text_model.embeddings.position_ids",
+                     "vision_model.embeddings.position_ids")
+
+
+def load_clip_model(source, text_config, vision_config, device="cuda"):
+    """Both towers of an HF ``CLIPModel`` directory (one state dict holding
+    ``text_model.*``, ``text_projection``, ``vision_model.*`` and
+    ``visual_projection``), or its named tensors: (``CLIPTextModel``,
+    ``CLIPVisionModel``) on ``device``. Each tower skips the other's names
+    and ``CLIP_MODEL_UNUSED``; any other name a tower lacks, or a tensor it
+    does not get, raises."""
+    from tweediemix_tpu_torch.models.clip import CLIPTextModel, CLIPVisionModel
+
+    source = _source(source)
+    unused = [k for k in source if k in CLIP_MODEL_UNUSED]
+    text = load_checkpoint(CLIPTextModel(text_config, device="meta"), source, device,
+                           ignore=unused + [k for k in source if k.startswith(CLIP_VISION_PREFIXES)])
+    vision = load_checkpoint(CLIPVisionModel(vision_config, device="meta"), source, device,
+                             ignore=unused + [k for k in source if k.startswith(CLIP_TEXT_PREFIXES)])
+    return text, vision
+
+
 # ---------------------------------------------------------------------------
 # GroundingDINO: the JAX tree, HF-layout directories and the original
 # groundingdino repo's single .pth (the reference's groundingdino_swinb_cogcoor)

@@ -2,15 +2,22 @@
 fp32-softmax math path elsewhere.
 
 Counterpart of ``tweediemix_tpu/ops/attention.py``. The flash sites are the
-ones the JAX package dispatches: both sequence lengths >= 1024 and
-dh in {64, 128, 256} (the SDXL self-attention at the 4096- and 1024-token
-levels). On CUDA tensors they go to the Hopper kernel, on CPU tensors to its
-plain version. ``TWEEDIEMIX_FLASH_INT8=1``, read on every call as the JAX
-package reads it, sends them to the int8 core instead (its kernel on CUDA,
-its plain version on the CPU). ``TWEEDIEMIX_SHORT_ATTENTION=1``, read the
-same way, sends short self-attention (the video UNet's frame axis: q and k of
-one shape, S <= 32, dh in {32, 64, 128}) to the short-sequence kernel, or to
-its plain version on the CPU; it stays opt-in, as in the JAX package.
+ones the JAX package dispatches: sq >= ``TWEEDIEMIX_FLASH_MIN_S`` (default
+1024), sk >= min(1024, that threshold) and dh in {64, 128, 256} (the SDXL
+self-attention at the 4096- and 1024-token levels). ``TWEEDIEMIX_ATTENTION``
+overrides the gate: ``xla`` sends every site to the math path, ``flash``
+every site whose sk passes the threshold above, whatever sq is (a dh the
+kernel does not take then raises), ``auto`` (the default) keeps the gate.
+On CUDA tensors the flash sites go to the Hopper kernel, on CPU tensors to
+its plain version. ``TWEEDIEMIX_FLASH_INT8=1`` sends them to the int8 core
+instead (its kernel on CUDA, its plain version on the CPU).
+``TWEEDIEMIX_SHORT_ATTENTION=1`` sends short self-attention (the video
+UNet's frame axis: q and k of one shape, S <= 32, dh in {32, 64, 128}) to
+the short-sequence kernel, or to its plain version on the CPU; it stays
+opt-in, as in the JAX package. ``TWEEDIEMIX_BF16_SCORES_MAX_SK=<n>``
+(default 0, off) gives bf16 math-path calls with 0 < sk <= n bf16 scores
+and a bf16 softmax, as ``_xla_attention`` does. Every knob is read on every
+call, as the JAX package reads them.
 Where an input requires a gradient (training), a flash site runs through
 ``FlashAttention``, an autograd function whose forward is the same kernel
 call and whose backward recomputes the math path's vjp in chunks of BH rows,
@@ -33,12 +40,37 @@ FLASH_MIN_SQ = 1024
 FLASH_MIN_SK = 1024
 # cap on the materialised [BH, Sq, Sk] fp32 score tensor of the math path
 SCORE_BYTES_CAP = 256 * 1024 * 1024
+ATTENTION_MODES = ("auto", "flash", "xla")  # TWEEDIEMIX_ATTENTION
+
+
+def flash_min_s() -> int:
+    """``TWEEDIEMIX_FLASH_MIN_S``: the least sq of a flash site."""
+    return int(os.environ.get("TWEEDIEMIX_FLASH_MIN_S", FLASH_MIN_SQ))
+
+
+def bf16_scores_max_sk() -> int:
+    """``TWEEDIEMIX_BF16_SCORES_MAX_SK``: the largest sk whose bf16 math-path
+    calls take bf16 scores (0, the default off a TPU, turns it off)."""
+    return int(os.environ.get("TWEEDIEMIX_BF16_SCORES_MAX_SK", "0"))
 
 
 def uses_flash(sq: int, sk: int, dh: int) -> bool:
     """Whether ``attention`` sends a [*, sq, dh] x [*, sk, dh] call to the
-    flash kernel."""
-    return sq >= FLASH_MIN_SQ and sk >= FLASH_MIN_SK and dh in HEAD_DIMS
+    flash kernel, under ``TWEEDIEMIX_ATTENTION`` and
+    ``TWEEDIEMIX_FLASH_MIN_S``. Raises where ``flash`` forces a site whose
+    dh the kernel does not take."""
+    mode = os.environ.get("TWEEDIEMIX_ATTENTION", "auto")
+    if mode not in ATTENTION_MODES:
+        raise ValueError(f"TWEEDIEMIX_ATTENTION={mode!r}; use one of {ATTENTION_MODES}")
+    min_s = flash_min_s()
+    if mode == "xla" or sk < min(FLASH_MIN_SK, min_s):
+        return False
+    if mode == "flash":
+        if dh not in HEAD_DIMS:
+            raise ValueError(f"TWEEDIEMIX_ATTENTION=flash: the flash kernel takes dh in "
+                             f"{HEAD_DIMS}, this site has dh {dh}")
+        return True
+    return sq >= min_s and dh in HEAD_DIMS
 
 
 def uses_short(q_shape, k_shape, num_heads: int) -> bool:
@@ -53,9 +85,16 @@ def uses_short(q_shape, k_shape, num_heads: int) -> bool:
 
 def math_attention(q, k, v, scale: float) -> torch.Tensor:
     """fp32 scores and softmax; p is cast to v's dtype for the p·v product
-    (``_xla_attention`` with its bf16-scores gate at 0)."""
+    (``_xla_attention``). bf16 inputs with 0 < sk <= ``bf16_scores_max_sk()``
+    take its bf16 branch: the fp32 scores rounded to bf16 and the softmax in
+    bf16 (max, exp, sum and quotient each rounded to bf16)."""
     s = torch.bmm(q.float(), k.float().transpose(1, 2)) * scale
-    p = torch.softmax(s, dim=-1)
+    if q.dtype == torch.bfloat16 and 0 < k.shape[1] <= bf16_scores_max_sk():
+        s = s.to(torch.bfloat16)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.softmax(s, dim=-1)
     return torch.bmm(p.to(v.dtype), v).to(q.dtype)
 
 

@@ -36,7 +36,10 @@ JAX or of the JAX package. Phases:
    ``sdxl(concept_slots=4)`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps at 1024², N=3, t_cond 0.2, resampling 10, jumping 5, half
    masks) through ``TweedieMixPipeline.sample``, twice, with the kernel's
-   launch count checked on each run, then one batch-4 and one batch-2 UNet
+   launch count checked on each run; then two seeds unsharded and over a
+   2-entry mesh on ``cuda:0`` (``parallel/mesh.py``: every UNet call's rows
+   split in two, so twice the launches), the latents held to each other;
+   then one batch-4 and one batch-2 UNet
    call under torch.profiler (device time by kernel class, idle share);
    then the CLI path: a full-width SDXL checkpoint of seeded random weights
    in the diffusers layout (its parameter counts held to the published
@@ -69,8 +72,11 @@ JAX or of the JAX package. Phases:
    directory, 10 steps at 512² with prior preservation, a modifier token and
    remat (saving at 5), then 3 steps with ``--train_text_encoder
    --use_8bit_adam``, each run's launches per step counted, its trainable
-   leaves moved and frozen ones bit-equal, one step profiled, and the
-   trained delta sampled by the fusion CLI; then the warm server
+   leaves moved and frozen ones bit-equal, one step profiled, then the
+   first run's flags up to its first save as one ``--multihost`` rank
+   (NCCL at world size 1: every gradient ``all_reduce`` through NCCL), its
+   delta held to the plain run's, and the trained delta sampled by the
+   fusion CLI; then the warm server
    (``cli/serve.main`` in process, ``phase_cli_serve``): five JSONL lines
    (the one-shot CLI's seed, whose PNG must equal the one-shot CLI's pixel
    for pixel, a malformed request answered with an error line, a warm
@@ -100,8 +106,10 @@ JAX or of the JAX package. Phases:
    (``UNet3DConfig.i2vgen()`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps, CFG 9, 16 frames at 512², the short-attention knob on)
    through ``I2VPipeline.generate``, one warm and one timed clip with both
-   kernels' launch counts checked, then one batch-2 UNet call profiled with
-   the knob on and off;
+   kernels' launch counts checked; two clips unsharded and over the 2-entry
+   mesh (one clip per shard), the loop cut to 10 steps, launches counted
+   and the latents held to each other; then one batch-2 UNet call profiled
+   with the knob on and off;
 7. the video CLI: a full-width I2VGen-XL directory of seeded random weights
    in the diffusers layout (its parameter counts held, fp16 variant files,
    the VAE in fp32) is written under ``build/`` and
@@ -158,6 +166,19 @@ RESAMPLE_RATIO_TOL = 3.0
 # run within 3x the plain bf16 path's on the CPU (which alone reads ~9e-2
 # of max |latent| after 3 steps at the small config).
 VIDEO_RATIO_TOL = 3.0
+# A UNet call over a 2-entry mesh on one card (its rows split in two, the
+# halves run one after the other) against the whole call on the same rows:
+# only the GEMMs' and convolutions' row counts differ, which changes bf16
+# rounding, so the two are held within the card-vs-CPU limit of one UNet
+# call's eps (EPS_REL_TOL); the meshed call must equal its halves run
+# directly bit for bit. A whole trajectory
+# amplifies such bf16 differences step by step (resampling's cancellation,
+# CFG 9), so the meshed sample is held against the unsharded one within
+# RESAMPLE_RATIO_TOL (fusion) or VIDEO_RATIO_TOL (video) times the distance
+# that rounding the initial latent to bf16 alone puts between two unsharded
+# samples.
+MESH_REL_TOL = EPS_REL_TOL
+MESH_VIDEO_STEPS = 10  # the meshed video comparison's loop, cut from 50 for time
 # The int8 kernel against its plain version on the same int8 inputs with the
 # same block_k: the same arithmetic but for exp2 ulps, the row-sum order and
 # the bf16 output, so the bf16 kernel's relative limit holds. Against exact
@@ -275,7 +296,7 @@ def phase_build():
         cuda_build.load_library(name)
     log(f"kernel build: {', '.join(KERNELS)} {time.perf_counter() - t0:.3f} s (nvcc, sm_90a)")
     for name in KERNELS:
-        ptxas = cuda_build.BUILD_DIR / f"{name}.ptxas.txt"
+        ptxas = cuda_build.build_dir() / f"{name}.ptxas.txt"
         if ptxas.exists():
             log(ptxas.read_text().strip())
 
@@ -737,6 +758,7 @@ def phase_main_path() -> dict:
         if launches != expected:
             fail(f"flash_attention launched {launches} times on the main path, expected {expected}")
         runs.append(stats)
+    mesh = mesh_fusion(pipe, embeds, fg, expected)
     # the fp32 decode alone: its mid-block attention holds a 16384 x 16384
     # fp32 score matrix (1 GiB) and its softmax
     torch.cuda.reset_peak_memory_stats()
@@ -751,7 +773,88 @@ def phase_main_path() -> dict:
              "joint_batch2": (embeds.joint_ctx, embeds.joint_pooled,
                               torch.zeros(2, dtype=torch.long, device="cuda"))}
     profile = {label: profile_call(pipe, label, *call) for label, call in calls.items()}
-    return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib, profile=profile)
+    return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib, profile=profile,
+                mesh=mesh)
+
+
+def two_entry_mesh():
+    """``parallel/mesh.py``'s 2-way mesh on the one card: both entries are
+    ``cuda:0``, so both halves of every split run on it, one after the
+    other, through one UNet replica."""
+    from tweediemix_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"dp": 2}, devices=["cuda:0", "cuda:0"])
+    if mesh.size != 2 or mesh.group is not None:
+        fail(f"the 2-entry mesh is {mesh}")
+    return mesh
+
+
+def _mesh_rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def mesh_fusion(pipe, embeds, fg, expected) -> dict:
+    """Over ``two_entry_mesh()``: one fused UNet call of two seeds (8 rows)
+    equal to its two 4-row halves called directly, and within
+    ``MESH_REL_TOL`` of the whole call; then two seeds sampled
+    unsharded and meshed, with the flash launches (each meshed UNet call is
+    two calls, so twice the unsharded count), seconds and peak memory, and
+    the meshed latent held to the unsharded one against the distance a bf16
+    rounding of the initial latent makes (``MESH_REL_TOL``'s comment)."""
+    import torch
+
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+
+    mesh = two_entry_mesh()
+    n = pipe.fusion_config.num_concepts
+    h, w = pipe.fusion_config.latent_hw
+    dev = pipe.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2 * (n + 1), h, w, 4), generator=gen, device=dev)
+    rows = (embeds.concept_ctx.repeat_interleave(2, 0), embeds.concept_pooled.repeat_interleave(2, 0),
+            torch.arange(n + 1, device=dev).repeat_interleave(2))
+    with torch.inference_mode():
+        whole = pipe._unet_fn(x, 501, *rows)
+        split = pipe.sampler_for(mesh).unet_fn(x, 501, *rows)
+        halves = torch.cat([pipe._unet_fn(x[i:i + n + 1], 501, *(a[i:i + n + 1] for a in rows))
+                            for i in (0, n + 1)])
+    out = dict(call_rel_err=_mesh_rel(split, whole), call_equals_halves=torch.equal(split, halves))
+    latents = {}
+    x_init = pipe.sampler.init_latent(0, 2, dev)
+    for label, mesh_devices, factor, start in (
+            ("unsharded", 1, 1, x_init), ("mesh2", mesh, 2, x_init),
+            ("unsharded_bf16_init", 1, 1, x_init.bfloat16().float())):
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        img = pipe.sample(embeds, fg_masks=fg, num_seeds=2, x_init=start, mesh_devices=mesh_devices)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        latents[label] = pipe.last_latent
+        out[label] = dict(s_two_seeds=wall, launches=flash_attention.launches,
+                          expected_launches=factor * expected,
+                          phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
+                          max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if tuple(img.shape) != (2, 1024, 1024, 3) or not torch.isfinite(img).all():
+            fail(f"{label} two-seed sample: shape {tuple(img.shape)} or non-finite values")
+        if flash_attention.launches != factor * expected:
+            fail(f"{label} two-seed sample launched the flash kernel {flash_attention.launches} "
+                 f"times, expected {factor * expected}")
+    out["rel_err"] = _mesh_rel(latents["mesh2"], latents["unsharded"])
+    out["bf16_init_rel_err"] = _mesh_rel(latents["unsharded_bf16_init"], latents["unsharded"])
+    out["latent_absmax"] = latents["unsharded"].abs().max().item()
+    out["gpu"] = gpu_name_and_power()
+    log(f"main path over a 2-entry mesh on cuda:0: {json.dumps(out)}")
+    if not out["call_equals_halves"]:
+        fail("a meshed UNet call differs from its halves called directly")
+    if out["call_rel_err"] > MESH_REL_TOL:
+        fail(f"a meshed UNet call is {out['call_rel_err']:.3e} of max |eps| from the whole "
+             f"call (limit {MESH_REL_TOL})")
+    if out["rel_err"] > RESAMPLE_RATIO_TOL * out["bf16_init_rel_err"]:
+        fail(f"the meshed two-seed latent is {out['rel_err']:.3e} of max |latent| from the "
+             f"unsharded one, more than {RESAMPLE_RATIO_TOL} x the {out['bf16_init_rel_err']:.3e} "
+             "a bf16 initial latent makes")
+    return out
 
 
 # parameters of the published SDXL checkpoint (stabilityai/stable-diffusion-
@@ -2404,6 +2507,7 @@ def phase_video_main_path() -> dict:
                 fail(f"video path launches {launches} (int8 {flash_attention_int8.launches}), "
                      f"expected {expected} and 0 int8")
             runs.append(stats)
+        mesh = mesh_video(pipe, (text, uncond, image, emb), sites)
 
         # one batch-2 UNet call of the loop (cache on), knob on and off
         h, w = vcfg.latent_hw
@@ -2424,7 +2528,87 @@ def phase_video_main_path() -> dict:
         profile["video_batch2_short_off"] = profile_fn("video_batch2_short_off", call)
     finally:
         os.environ.pop("TWEEDIEMIX_SHORT_ATTENTION", None)
-    return dict(runs=runs, expected_launches=expected, unet_params=n_params, profile=profile)
+    return dict(runs=runs, expected_launches=expected, unet_params=n_params, profile=profile,
+                mesh=mesh)
+
+
+def mesh_video(pipe, inputs, sites) -> dict:
+    """Two clips over ``two_entry_mesh()`` (one clip per shard, each
+    shard's whole loop on its replica): one step's UNet call per shard
+    against the whole 4-row call within ``MESH_REL_TOL``; then the clips
+    generated unsharded and meshed with the loop cut to
+    ``MESH_VIDEO_STEPS`` steps: both kernels' launches (the meshed loop
+    makes two UNet calls per step, so twice the unsharded count), seconds,
+    peak memory, and the meshed latent held to the unsharded one against
+    the distance a bf16 rounding of the initial latents makes."""
+    import torch
+
+    from tweediemix_tpu_torch.models.unet3d import precompute_video_cache
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
+    from tweediemix_tpu_torch.video.pipeline import I2VPipeline
+
+    vcfg = dataclasses.replace(pipe.config, n_timesteps=MESH_VIDEO_STEPS)
+    cut = I2VPipeline(vcfg, pipe.unet, pipe.vae, device=pipe.device)
+    text, uncond, image, emb = inputs
+    image = image.repeat(2, 1, 1, 1)
+    mesh = two_entry_mesh()
+
+    # one loop step's UNet call: the 4 interleaved rows at once, and each
+    # clip's 2 rows with its own cache, as a shard runs them
+    h, w = vcfg.latent_hw
+    dev = pipe.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x4 = torch.randn((4, vcfg.num_frames, h, w, 4), generator=gen, device=dev)
+    rows = (torch.cat([uncond, text] * 2), 0.3 * torch.randn(x4.shape, generator=gen, device=dev),
+            torch.cat([torch.zeros_like(emb), emb] * 2), torch.full((4,), float(vcfg.fps),
+                                                                   device=dev))
+
+    def call(x, r):
+        cctx, cil, kv = precompute_video_cache(cut.unet, *r)
+        return cut.unet(x, 501, *r, False, False, vcfg.interp_ratio, cached_ctx=cctx,
+                        cached_il=cil, cross_kv=kv)
+
+    with torch.inference_mode():
+        whole = call(x4, rows)
+        split = torch.cat([call(x4[i:i + 2], tuple(a[i:i + 2] for a in rows)) for i in (0, 2)])
+    out = dict(call_rel_err=_mesh_rel(split, whole))
+    latents = {}
+    x_init = cut.init_latents(0, 2)
+    for label, mesh_devices, factor, start in (
+            ("unsharded", 1, 1, x_init), ("mesh2", mesh, 2, x_init),
+            ("unsharded_bf16_init", 1, 1, x_init.bfloat16().float())):
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = short_seq_attention.launches = 0
+        t0 = time.perf_counter()
+        video = cut.generate(text, uncond, image, emb, seed=0, x_init=start,
+                             mesh_devices=mesh_devices)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        latents[label] = cut.last_latent
+        launches = dict(short=short_seq_attention.launches, flash=flash_attention.launches)
+        want = {k: factor * v * MESH_VIDEO_STEPS for k, v in sites.items()}
+        out[label] = dict(s_two_clips=wall, launches=launches, expected_launches=want,
+                          phases={k: round(v, 4) for k, v in cut.phase_seconds.items()},
+                          max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if (tuple(video.shape) != (2, vcfg.num_frames, vcfg.height, vcfg.width, 3)
+                or not torch.isfinite(video).all()):
+            fail(f"{label} two-clip video: shape {tuple(video.shape)} or non-finite frames")
+        if launches != want:
+            fail(f"{label} two-clip video launches {launches}, expected {want}")
+    out["rel_err"] = _mesh_rel(latents["mesh2"], latents["unsharded"])
+    out["bf16_init_rel_err"] = _mesh_rel(latents["unsharded_bf16_init"], latents["unsharded"])
+    out.update(steps=MESH_VIDEO_STEPS, gpu=gpu_name_and_power())
+    log(f"video path over a 2-entry mesh on cuda:0, {MESH_VIDEO_STEPS} steps (cut from "
+        f"{pipe.config.n_timesteps} for time): {json.dumps(out)}")
+    if out["call_rel_err"] > MESH_REL_TOL:
+        fail(f"a meshed video UNet call is {out['call_rel_err']:.3e} of max |eps| from the whole "
+             f"call (limit {MESH_REL_TOL})")
+    if out["rel_err"] > VIDEO_RATIO_TOL * out["bf16_init_rel_err"]:
+        fail(f"the meshed two-clip latent is {out['rel_err']:.3e} of max |latent| from the "
+             f"unsharded one, more than {VIDEO_RATIO_TOL} x the {out['bf16_init_rel_err']:.3e} "
+             "a bf16 initial latent makes")
+    return out
 
 
 def phase_reference_video_w8a8() -> dict:
@@ -2909,6 +3093,8 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
                     fail(f"class image {ihdr}")
             runs[label] = stats
 
+        runs["multihost"] = cli_train_multihost(base, root, sites)
+
         # the trained delta as the first concept of a short fusion sample
         trained = os.path.join(root, "train_cd", f"delta-{TRAIN_STEPS}.bin")
         argv = _flag(fusion_argv, "personal_checkpoint", "+".join([trained] + deltas[1:]))
@@ -2936,6 +3122,92 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
         return runs
     finally:
         trainer.make_full_train_step = make_step
+
+
+def _delta_distance(a, b) -> float:
+    """Largest |a − b| over every tensor of two delta checkpoints (their
+    keys must agree)."""
+    dist = 0.0
+    for coll in ("unet", "modifier_token", "modifier_token_2"):
+        if sorted(a[coll]) != sorted(b[coll]):
+            fail(f"delta keys of {coll} differ")
+        for k in a[coll]:
+            dist = max(dist, (a[coll][k].float() - b[coll][k].float()).abs().max().item())
+    return dist
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_train_multihost(base, root, sites) -> dict:
+    """The Custom-Diffusion run's flags again, up to its first save, as one
+    ``--multihost`` rank (NCCL at world size 1 on 127.0.0.1): every step's
+    gradient ``all_reduce`` goes through NCCL on the card. Its delta at that
+    step is held to the plain run's: bit for bit, or else within the
+    distance between the plain run and a second plain run of the same
+    steps; 20 flash launches per step; the process group gone after."""
+    import torch
+
+    from tweediemix_tpu_torch.cli import train
+    from tweediemix_tpu_torch.concepts.delta import load_reference_delta
+    from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.training import trainer
+
+    reduce_sum = trainer.all_reduce_sum
+    reduces = []
+
+    def counted(tensors, group=None):
+        reduces.append(torch.distributed.get_backend())
+        return reduce_sum(tensors, group)
+
+    steps = TRAIN_SAVE_STEPS
+    common = ["--max_train_steps", str(steps), "--save_steps", str(steps)]
+    out = os.path.join(root, "train_mh")
+    argv = base + common + ["--output_dir", out, "--multihost", "--coordinator_address",
+                            f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+                            "--process_id", "0"]
+    trainer.all_reduce_sum = counted
+    flash_attention.launches = 0
+    try:
+        rc, stdout, wall = run_cli(train.main, argv)
+    finally:
+        trainer.all_reduce_sum = reduce_sum
+    if rc != 0:
+        fail(f"the --multihost training CLI returned {rc}")
+    if torch.distributed.is_initialized():
+        fail("the --multihost training CLI left its process group")
+    parsed = _train_stdout(stdout)
+    per_step = flash_attention.launches / steps
+    plain = load_reference_delta(os.path.join(root, "train_cd", f"delta-{steps}.bin"))
+    got = load_reference_delta(os.path.join(out, f"delta-{steps}.bin"))
+    dist = _delta_distance(got, plain)
+    stats = dict(gpu=gpu_name_and_power(), wall_s=wall, **parsed["timings"],
+                 losses=parsed["losses"], launches=flash_attention.launches,
+                 launches_per_step=per_step, all_reduces=len(reduces),
+                 backends=sorted(set(reduces)), delta_distance=dist)
+    if dist > 0:  # not bit for bit: how far two plain runs of these steps are apart
+        out2 = os.path.join(root, "train_plain2")
+        rc, _, _ = run_cli(train.main, base + common + ["--output_dir", out2])
+        if rc != 0:
+            fail(f"the second plain training run returned {rc}")
+        stats["plain_distance"] = _delta_distance(
+            load_reference_delta(os.path.join(out2, f"delta-{steps}.bin")), plain)
+    log(f"cli train multihost (world size 1): {json.dumps(stats)}")
+    if per_step != 2 * sites:
+        fail(f"the --multihost run launched the kernel {per_step} times per step, "
+             f"expected {2 * sites}")
+    # a count-reduce and a gradient-and-metrics pair per step, all through NCCL
+    if stats["backends"] != ["nccl"] or len(reduces) != 3 * steps:
+        fail(f"all_reduce calls {len(reduces)} on {stats['backends']}, expected {3 * steps} on nccl")
+    if dist > stats.get("plain_distance", 0.0):
+        fail(f"the --multihost delta is {dist:.3e} from the plain run's, two plain runs "
+             f"{stats.get('plain_distance', 0.0):.3e}")
+    return stats
 
 
 def profile_call(pipe, label, ctx, pooled, idx) -> dict:
@@ -3029,6 +3301,10 @@ def main() -> None:
               cli_dino_launches={k: v["launches"] for k, v in cli["segmentation"]["dino"]["fusion"].items()},
               cli_video_launches=cli_runs["bf16"]["launches"]["flash"],
               train_launches=cli["train"]["cd"]["launches_per_step"],
+              train_multihost_launches=cli["train"]["multihost"]["launches_per_step"],
+              mesh_launches=main_path["mesh"]["mesh2"]["launches"],
+              mesh_unsharded_launches=main_path["mesh"]["unsharded"]["launches"],
+              video_mesh_launches=video["mesh"]["mesh2"]["launches"]["flash"],
               train_te_launches=cli["train"]["te_8bit"]["launches_per_step"],
               backward=dict(shape=grad_row["shape"], ms=grad_row["ms"],
                             plain_ms=grad_row["plain_ms"], bound_ms=grad_row["bound_ms"],
@@ -3049,6 +3325,8 @@ def main() -> None:
         entry("short_attention", "tweediemix_tpu_torch/csrc/short_attention.cu",
               "tweediemix_tpu/ops/short_attention.py:51", video["runs"][-1]["launches"]["short"],
               short_rows, cli_video_launches=cli_runs["bf16"]["launches"]["short"],
+              video_mesh_launches=video["mesh"]["mesh2"]["launches"]["short"],
+              video_mesh_unsharded_launches=video["mesh"]["unsharded"]["launches"]["short"],
               cli_video_w8a8_launches=cli_runs["w8a8"]["launches"]["short"]),
     ]
     log(json.dumps(dict(main_path=main_path, cli_path=cli, reference_w8a8=reference_w8a8,

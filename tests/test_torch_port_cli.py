@@ -280,7 +280,10 @@ def test_cli_heuristic_segmentation_and_seed_sets(tmp_path, capsys):
 @pytest.mark.parametrize("extra, error, match", [
     (["--concepts", "cat+dog"], ValueError, "same number of"),
     (["--num_seeds", "3", "--prompt", PROMPT + "||" + PROMPT], ValueError, "must equal --num_seeds"),
-    (["--mesh_devices", "2"], NotImplementedError, "ROADMAP item 16"),
+    # --mesh_devices is ported (tests/test_torch_port_parallel.py): a mesh of
+    # no device raises before anything is built (the id keeps its earlier name)
+    pytest.param(["--mesh_devices", "0"], ValueError, "--mesh_devices must be at least 1",
+                 id="extra2-NotImplementedError-ROADMAP item 16"),
     # --profile is ported: a trace directory that cannot be made raises before
     # anything is built (the id keeps its earlier name)
     pytest.param(["--profile", __file__], FileExistsError, re.escape(__file__),

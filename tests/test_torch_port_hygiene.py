@@ -42,7 +42,7 @@ def test_importing_every_port_module_loads_no_jax():
                  "training.augment", "training.class_gen", "training.retrieve", "utils.logging",
                  "models.swin", "models.bert", "models.dino", "cli.serve", "evaluation",
                  "cli.evaluate", "utils.profiling", "segmentation.viz", "cli.app",
-                 "tools.calibrate_quant"):
+                 "tools.calibrate_quant", "parallel", "parallel.mesh", "utils.compile_cache"):
         assert f"tweediemix_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -195,6 +195,18 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
                   lambda: calibrate_quant.main(["--micro", "--out", "scales.json"])):
         with pytest.raises(RuntimeError, match="cuda"):
             build()
+    from tweediemix_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    # default devices are CUDA ones: never a CPU mesh or a gloo group in their place
+    for build in (make_mesh, lambda: make_mesh({"dp": 2}),
+                  lambda: init_distributed("127.0.0.1:1", 1, 0),
+                  lambda: train.main(["--model_preset", "tiny", "--instance_data_dir", "inst",
+                                      "--instance_prompt", "a <new1> cat", "--dp_devices", "2"]),
+                  lambda: run_video.main(["--model_preset", "tiny", "--image", "x.png",
+                                          "--prompt", "a cat", "--mesh_devices", "2"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+    assert not torch.distributed.is_initialized()
 
 
 def test_video_cli_runs_without_pil(tmp_path, monkeypatch, capsys):
@@ -247,7 +259,7 @@ def test_torch_threads_are_capped_per_xdist_worker():
            'int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))')
     files = sorted(f for f in os.listdir(os.path.join(REPO, "tests")) if f.startswith("test_torch_port_"))
     uncapped = [f for f in files if cap not in open(os.path.join(REPO, "tests", f), encoding="utf-8").read()]
-    assert len(files) >= 19 and not uncapped, uncapped
+    assert len(files) >= 21 and not uncapped, uncapped
 
 
 def test_package_exports_version_and_ddim_table():

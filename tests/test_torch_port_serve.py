@@ -69,7 +69,7 @@ def test_warm_flag_is_per_trace_geometry(tmp_path):
         def prepare_text_embeds(self, *a, **k):
             return None
 
-        def sample(self, embeds, seed, fg_masks, num_seeds):
+        def sample(self, embeds, seed, fg_masks, num_seeds, mesh_devices):
             return torch.zeros((num_seeds, 8, 8, 3))
 
     opt = argparse.Namespace(
@@ -106,6 +106,10 @@ def test_served_png_equals_the_one_shot_cli_png(tmp_path, capsys):
 
 
 def test_serve_mesh_devices_raises_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16f"):
-        serve.main(startup_flags(tmp_path) + ["--mesh_devices", "2"], stdin=io.StringIO(""),
+    """``--mesh_devices`` > 1 is ported (``tests/test_torch_port_parallel.py``
+    serves a request over a 2-way mesh); a mesh of no device raises before
+    the pipeline is built. The name is kept from when every mesh raised."""
+    with pytest.raises(ValueError, match="--mesh_devices must be at least 1"):
+        serve.main(startup_flags(tmp_path) + ["--mesh_devices", "0"], stdin=io.StringIO(""),
                    stdout=io.StringIO(), device="cpu")
+    assert not list(tmp_path.glob("**/*.png"))

@@ -289,12 +289,22 @@ def test_cli_flags_and_defaults_match_jax():
     assert flags(port_train.build_parser()) == flags(jax_parser())
 
 
-@pytest.mark.parametrize("extra", [["--dp_devices", "2"], ["--multihost"]])
-def test_cli_data_parallel_is_not_ported(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+@pytest.mark.parametrize("extra, error, match", [
+    (["--dp_devices", "2", "--multihost", "--coordinator_address", "127.0.0.1:1",
+      "--num_processes", "3", "--process_id", "0"], SystemExit, "one rank per device"),
+    (["--multihost"], ValueError, "--coordinator_address"),
+], ids=["extra0", "extra1"])
+def test_cli_data_parallel_is_not_ported(tmp_path, monkeypatch, extra, error, match):
+    """Data parallelism is ported (``tests/test_torch_port_parallel_train.py``);
+    its flags are checked before any process group is joined or anything is
+    written: ``--multihost`` runs one rank per device, and needs a
+    coordinator. The name and ids are kept from when both flags raised."""
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(error, match=match):
         port_train.main(["--model_preset", "tiny", "--instance_data_dir", str(tmp_path),
                          "--instance_prompt", "a cat", "--output_dir", str(tmp_path / "o"),
                          *extra], device="cpu")
+    assert not (tmp_path / "o").exists()
 
 
 def test_lora_delta_names_the_fusion_loaders_read(tmp_path):

@@ -388,8 +388,11 @@ def test_video_cli_writes_one_gif_per_seed(tmp_path):
 
 
 def test_video_cli_mesh_devices_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _cli(tmp_path, "--mesh_devices", "2")
+    """``--mesh_devices 2`` runs (``tests/test_torch_port_parallel.py``); a
+    clip count that does not divide over the devices raises the JAX
+    package's message."""
+    with pytest.raises(AssertionError, match="clip batch 3 must divide over 2 devices"):
+        _cli(tmp_path, "--num_seeds", "3", "--mesh_devices", "2")
 
 
 def test_video_cli_has_every_flag_of_the_jax_cli():

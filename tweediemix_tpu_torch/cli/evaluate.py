@@ -64,9 +64,11 @@ def scores(scorer, images, prompts, modifiers, concept_dirs, names) -> dict:
 def main(argv=None, device="cuda") -> int:
     from tweediemix_tpu_torch.device import resolve_device
     from tweediemix_tpu_torch.evaluation import CLIPScorer, load_images
+    from tweediemix_tpu_torch.utils.compile_cache import enable_compile_cache
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)
+    enable_compile_cache()
     if opt.clip_dir is not None:
         scorer = CLIPScorer.from_pretrained(opt.clip_dir, device=device)
     elif opt.model_preset == "tiny":

@@ -27,8 +27,10 @@ It runs on the card; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU. ``--device`` and ``--seg_gpu`` are accepted for the reference's
 scripts and only warn. ``--profile DIR`` writes a ``torch.profiler``
 Chrome trace of the sample and the PNG writes (``DIR/trace.json``) and
-``DIR/phase_timings.json``. Not ported yet: ``--mesh_devices`` > 1 (ROADMAP
-item 16f).
+``DIR/phase_timings.json``. ``--mesh_devices n`` shards every UNet
+forward's rows over ``cuda:0`` .. ``cuda:n-1`` (on the CPU, the CPU n times;
+``parallel/mesh.py``). The kernels are built into the compile cache's
+directory (``utils/compile_cache.py``, ``TWEEDIEMIX_COMPILE_CACHE``).
 """
 
 from __future__ import annotations
@@ -101,8 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_seeds", type=int, default=1,
                    help="sample this many seeds (seed..seed+n-1) in one batch")
     p.add_argument("--mesh_devices", type=int, default=1,
-                   help="shard every forward's batch rows over this many devices "
-                        "(not ported yet: 1 only)")
+                   help="shard every forward's batch rows over this many devices")
     p.add_argument("--quant", type=str, default=None, choices=[None, "int8", "int8_conv"],
                    help="run the UNet's transformer matmuls as W8A8 int8 "
                         "(ops/quant.py); int8_conv also quantises the resnet and "
@@ -297,13 +298,14 @@ def main(argv=None, device="cuda") -> int:
 
     from tweediemix_tpu_torch.device import resolve_device
     from tweediemix_tpu_torch.fusion.pipeline import save_image, stack_text_embeds
+    from tweediemix_tpu_torch.utils.compile_cache import enable_compile_cache
     from tweediemix_tpu_torch.utils.profiling import PhaseTimer, trace
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)  # before anything is written
-    if opt.mesh_devices > 1:
-        raise NotImplementedError("--mesh_devices > 1 is not ported to the torch package yet "
-                                  "(ROADMAP item 16f)")
+    if opt.mesh_devices < 1:
+        raise ValueError(f"--mesh_devices must be at least 1, got {opt.mesh_devices}")
+    enable_compile_cache()
     for name in ("device", "seg_gpu"):
         if getattr(opt, name) is not None:
             print(f"warning: --{name} is accepted for reference-script compatibility "
@@ -352,7 +354,8 @@ def main(argv=None, device="cuda") -> int:
     with trace(opt.profile) if opt.profile else contextlib.nullcontext():
         profiler_start_s = time.perf_counter() - t_masks  # not the sample's
         with timer.phase(f"sample_{opt.num_seeds}_seeds"):
-            imgs = pipe.sample(embeds, seed=opt.seed, fg_masks=fg_masks, num_seeds=opt.num_seeds)
+            imgs = pipe.sample(embeds, seed=opt.seed, fg_masks=fg_masks, num_seeds=opt.num_seeds,
+                               mesh_devices=opt.mesh_devices)
         t2 = sync()
         orig_names = [o.strip() for o in opt.prompt_orig.split("||")]
         for i in range(imgs.shape[0]):

@@ -23,7 +23,9 @@ picture resized to the vision tower's size with an antialiased bilinear, as
 ``jax.image.resize`` does. The GIF is written by the port's own writer.
 
 It runs on the card; ``main(argv, device="cpu")`` runs the plain versions
-on the CPU. Not ported yet: ``--mesh_devices`` > 1 (ROADMAP item 16).
+on the CPU. ``--mesh_devices n`` shards the ``--num_seeds`` clips over n
+devices (``cuda:0`` .. ``cuda:n-1``, or the CPU n times), each running the
+whole loop for its clips; the clips must divide over them.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(clip b from its own generators). Writes <output>_b.gif per "
                         "extra clip.")
     p.add_argument("--mesh_devices", type=int, default=1,
-                   help="shard the clip rows over this many devices (not ported yet: 1 only)")
+                   help="shard the clip rows over this many devices (--num_seeds must "
+                        "divide over them)")
     p.add_argument("--quant", type=str, default=None, choices=[None, "int8", "int8_conv"],
                    help="run the video UNet's transformer matmuls (spatial and "
                         "temporal) as W8A8 int8 (ops/quant.py); int8_conv also "
@@ -178,13 +181,12 @@ def main(argv=None, device="cuda") -> int:
 
     from tweediemix_tpu_torch.device import resolve_device
     from tweediemix_tpu_torch.ops.quant import load_static_scales
+    from tweediemix_tpu_torch.utils.compile_cache import enable_compile_cache
     from tweediemix_tpu_torch.video.pipeline import I2VPipeline, VideoConfig, export_gif
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)  # before anything is read or written
-    if opt.mesh_devices > 1:
-        raise NotImplementedError("--mesh_devices > 1 is not ported to the torch package yet "
-                                  "(ROADMAP item 16)")
+    enable_compile_cache()
 
     def sync():
         if device.type == "cuda":
@@ -216,7 +218,8 @@ def main(argv=None, device="cuda") -> int:
     image = (img01 * 2.0 - 1.0).repeat(opt.num_seeds, 1, 1, 1)
     t3 = sync()
 
-    video = pipe.generate(ctx[:1], ctx[1:], image, img_emb, seed=opt.seed)
+    video = pipe.generate(ctx[:1], ctx[1:], image, img_emb, seed=opt.seed,
+                          mesh_devices=opt.mesh_devices)
     t4 = sync()
     os.makedirs(os.path.dirname(os.path.abspath(opt.output)), exist_ok=True)
     clips = video[None] if opt.num_seeds == 1 else video

@@ -56,11 +56,13 @@ def main(argv=None, device="cuda") -> int:
 
     from tweediemix_tpu_torch.device import resolve_device
     from tweediemix_tpu_torch.segmentation import make_segment_fn
+    from tweediemix_tpu_torch.utils.compile_cache import enable_compile_cache
     from tweediemix_tpu_torch.utils.image import read_image, write_png
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)  # before anything is written
     os.makedirs(opt.output_path, exist_ok=True)
+    enable_compile_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -31,7 +31,8 @@ seconds go to stderr as ``timings: {...}``.
         --modifier_token "<cat1>+<dog1>+<mountain1>" --seg_concepts "a cat+a dog" < requests.jsonl
 
 It runs on the card; ``main(argv, stdin, stdout, device="cpu")`` runs the
-plain versions on the CPU.
+plain versions on the CPU. ``--mesh_devices n`` shards every request's UNet
+forwards over n devices, as in the one-shot CLI.
 """
 
 from __future__ import annotations
@@ -102,7 +103,8 @@ def handle_request(pipe, opt, req: dict, served: set) -> dict:
     warm = geometry in served
 
     t0 = time.perf_counter()
-    imgs = pipe.sample(embeds, seed=seed, fg_masks=fg_masks, num_seeds=num_seeds)
+    imgs = pipe.sample(embeds, seed=seed, fg_masks=fg_masks, num_seeds=num_seeds,
+                       mesh_devices=opt.mesh_devices)
     files = []
     for s in range(imgs.shape[0]):
         stem = origs_per_seed[s].split("+")[0].strip() or "sample"
@@ -121,12 +123,13 @@ def handle_request(pipe, opt, req: dict, served: set) -> dict:
 
 def main(argv=None, stdin=None, stdout=None, device="cuda") -> int:
     from tweediemix_tpu_torch.device import resolve_device
+    from tweediemix_tpu_torch.utils.compile_cache import enable_compile_cache
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)  # before anything is built
-    if opt.mesh_devices > 1:
-        raise NotImplementedError("--mesh_devices > 1 is not ported to the torch package yet "
-                                  "(ROADMAP item 16f)")
+    if opt.mesh_devices < 1:
+        raise ValueError(f"--mesh_devices must be at least 1, got {opt.mesh_devices}")
+    enable_compile_cache()
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
 

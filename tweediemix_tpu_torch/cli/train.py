@@ -319,6 +319,9 @@ def generate_missing_class_images(opt, concepts, unet, te1, te2, tok1, tok2, vae
 
 
 def main(argv=None, device="cuda") -> int:
+    """Train on ``device``; with ``--dp_devices n`` (n > 1) on n local ranks
+    spawned here, with ``--multihost`` as one rank of a job the caller
+    launched."""
     opt = build_parser().parse_args(argv)
 
     import torch
@@ -326,16 +329,105 @@ def main(argv=None, device="cuda") -> int:
     from tweediemix_tpu_torch.device import resolve_device
 
     device = resolve_device(device)  # before anything is written
-    if opt.multihost or (opt.dp_devices or 1) > 1:
-        raise NotImplementedError("--dp_devices > 1 and --multihost are not ported to the torch "
-                                  "package yet (ROADMAP item 16); the port trains on one card")
-    _warn_compat_flags(opt)
+    n_dp = opt.dp_devices or 1
+    if n_dp < 1:
+        raise ValueError(f"--dp_devices must be at least 1, got {n_dp}")
+    if not opt.multihost:
+        if n_dp > 1:
+            return _spawn_ranks(sys.argv[1:] if argv is None else list(argv), n_dp, device)
+        return _train(opt, device)
+    if opt.coordinator_address is None and "MASTER_ADDR" not in os.environ:
+        raise ValueError("--multihost needs --coordinator_address, --num_processes and "
+                         "--process_id (or torchrun's MASTER_ADDR, WORLD_SIZE and RANK)")
+    if opt.dp_devices is not None and opt.num_processes not in (None, opt.dp_devices):
+        raise SystemExit(f"--multihost runs one rank per device: --dp_devices {opt.dp_devices} "
+                         f"must equal --num_processes {opt.num_processes}")
+
+    from tweediemix_tpu_torch.parallel.mesh import destroy_distributed, init_distributed
+
+    init_distributed(opt.coordinator_address, opt.num_processes, opt.process_id, device)
+    try:
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        return _train(opt, device, multihost=True)
+    finally:
+        destroy_distributed()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(argv, n: int, device) -> int:
+    """``--dp_devices n``: n ranks on ``cuda:0`` .. ``cuda:n-1`` (or n CPU
+    ranks), spawned with ``torch.multiprocessing`` on a local TCP
+    rendezvous; returns when all have finished (a rank's failure raises)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    if device.type == "cuda" and torch.cuda.device_count() < n:
+        raise SystemExit(f"--dp_devices {n} needs {n} CUDA devices; this host has "
+                         f"{torch.cuda.device_count()}")
+    # CPU ranks share the caller's threads
+    threads = max(1, torch.get_num_threads() // n) if device.type == "cpu" else None
+    mp.spawn(_rank_main, args=(argv, n, f"127.0.0.1:{_free_port()}", device.type, threads),
+             nprocs=n, join=True)
+    return 0
+
+
+def _rank_main(rank: int, argv, n: int, address: str, device_type: str, threads) -> None:
+    import torch
+
+    from tweediemix_tpu_torch.parallel.mesh import destroy_distributed, init_distributed
+
+    if threads is not None:
+        torch.set_num_threads(threads)
+    init_distributed(address, n, rank, device_type)
+    try:
+        device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+        _train(build_parser().parse_args(argv), device)
+    finally:
+        destroy_distributed()
+
+
+def _train(opt, device, multihost: bool = False) -> int:
+    """The training run of this process: the whole run in one process, or
+    this rank's share once ``torch.distributed`` is initialised. Under
+    ``--dp_devices`` every rank loads the global batch (``train_batch_size``
+    per rank) from one data stream and takes its rows; under
+    ``--multihost`` each rank loads its own rows from the stream seeded
+    ``seed + rank``. Either way each micro step draws t and the noise of
+    the global batch on every rank and takes the rank's rows, so n ranks at
+    batch b train as one process at batch n·b. Only rank 0 prints, logs and
+    writes deltas; every rank waits for the resume checkpoint."""
+    import torch
+
+    from tweediemix_tpu_torch.parallel.mesh import (
+        barrier,
+        is_primary_process,
+        make_mesh,
+        place_global_batch,
+        shard_batch,
+    )
+    from tweediemix_tpu_torch.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()  # after the process group, as the JAX CLI orders it
+    mesh = make_mesh() if torch.distributed.is_initialized() else None
+    n_dev = 1 if mesh is None else mesh.size
+    rank = 0 if mesh is None else mesh.local_shards()[0]
+    is_main = is_primary_process()
+    if is_main:
+        _warn_compat_flags(opt)
     if opt.logging_dir and opt.report_to == "none":
         opt.report_to = opt.logging_dir
     os.makedirs(opt.output_dir, exist_ok=True)
 
     from tweediemix_tpu_torch.schedulers.ddim import training_alphas_cumprod
-    from tweediemix_tpu_torch.training.custom_diffusion import TrainConfig
+    from tweediemix_tpu_torch.training.custom_diffusion import TrainConfig, draw_noise
     from tweediemix_tpu_torch.training.data import (
         ConceptSpec,
         CustomDiffusionDataset,
@@ -372,15 +464,17 @@ def main(argv=None, device="cuda") -> int:
                                 opt.class_data_dir, opt.class_prompt)]
 
     if opt.real_prior and opt.with_prior_preservation:
-        from tweediemix_tpu_torch.training.retrieve import retrieve
+        if is_main:  # one process fills the shared class directories
+            from tweediemix_tpu_torch.training.retrieve import retrieve
 
-        for c in concepts:
-            if c.class_data_dir and not os.path.isdir(os.path.join(c.class_data_dir, "images")):
-                try:
-                    n = retrieve(c.class_prompt, c.class_data_dir, opt.num_class_images)
-                    print(f"retrieved {n} regularization images for {c.class_prompt!r}")
-                except RuntimeError as e:
-                    print(f"warning: {e}; continuing without real prior", file=sys.stderr)
+            for c in concepts:
+                if c.class_data_dir and not os.path.isdir(os.path.join(c.class_data_dir, "images")):
+                    try:
+                        n = retrieve(c.class_prompt, c.class_data_dir, opt.num_class_images)
+                        print(f"retrieved {n} regularization images for {c.class_prompt!r}")
+                    except RuntimeError as e:
+                        print(f"warning: {e}; continuing without real prior", file=sys.stderr)
+        barrier()
 
     lora = opt.freeze_model == "lora"
     if opt.model_preset == "tiny" or opt.model_dir is None:
@@ -399,27 +493,46 @@ def main(argv=None, device="cuda") -> int:
     latent_factor = 2 ** (len(vae.config.block_out_channels) - 1)
     t0 = time.perf_counter()
     if opt.with_prior_preservation and not opt.real_prior:
-        generate_missing_class_images(opt, concepts, unet, te1, te2, tok1, tok2, vae,
-                                      latent_factor, device)
+        if multihost:
+            from tweediemix_tpu_torch.training.data import list_images
+
+            for c in concepts:
+                d = c.class_data_dir
+                if d and c.class_prompt and not (os.path.isdir(d) and list_images(d)):
+                    raise SystemExit(
+                        f"--multihost: class images for {c.class_prompt!r} are missing in {d}; "
+                        "generate them with a single-host run first (every process would "
+                        "otherwise race writing the same directory)")
+        elif is_main:  # the other local ranks wait for them at the barrier
+            generate_missing_class_images(opt, concepts, unet, te1, te2, tok1, tok2, vae,
+                                          latent_factor, device)
+        barrier()
     timings["class_images_s"] = sync() - t0
 
     ds = CustomDiffusionDataset(
         concepts, tok1, tok2, size=opt.resolution,
         with_prior_preservation=opt.with_prior_preservation,
         num_class_images=opt.num_class_images, hflip=opt.hflip, center_crop=opt.center_crop,
-        seed=opt.seed, latent_factor=latent_factor,
+        # disjoint per-process sampling streams under --multihost
+        seed=opt.seed + (rank if multihost else 0), latent_factor=latent_factor,
     )
+    if mesh is not None and is_main:
+        print(f"data parallelism over {n_dev} devices"
+              + (f" in {n_dev} processes" if multihost else "")
+              + f" (global batch {opt.train_batch_size * n_dev})")
     accum = opt.gradient_accumulation_steps
     if not opt.max_train_steps:
         import math
 
-        per_epoch = math.ceil(math.ceil(len(ds) / opt.train_batch_size) / accum)
+        per_epoch = math.ceil(math.ceil(len(ds) / (opt.train_batch_size * n_dev)) / accum)
         opt.max_train_steps = opt.num_train_epochs * per_epoch
-        print(f"max_train_steps derived from {opt.num_train_epochs} epochs: {opt.max_train_steps}")
+        if is_main:
+            print(f"max_train_steps derived from {opt.num_train_epochs} epochs: "
+                  f"{opt.max_train_steps}")
 
     lr = opt.learning_rate
     if opt.scale_lr:
-        lr *= accum * opt.train_batch_size
+        lr *= accum * opt.train_batch_size * n_dev
     if opt.lr_scheduler != "constant":
         from tweediemix_tpu_torch.training.lr_schedules import get_lr_schedule
 
@@ -445,13 +558,20 @@ def main(argv=None, device="cuda") -> int:
     rm1 = embedding_row_mask(te1.config.vocab_size, ids1, device) if modifier_tokens else None
     rm2 = embedding_row_mask(te2.config.vocab_size, ids2, device) if modifier_tokens else None
     train_step = make_full_train_step(unet, te1, te2, tcfg, training_alphas_cumprod().to(device),
-                                      rm1, rm2, time_ids)
+                                      rm1, rm2, time_ids, data_parallel=mesh is not None)
     resume_dir = os.path.join(opt.output_dir, "resume")
     if opt.resume_step is not None:
+        path = os.path.join(resume_dir, f"state_{opt.resume_step}.pt")
+        if multihost and not os.path.exists(path):
+            # every rank restores the checkpoint rank 0 wrote
+            raise FileNotFoundError(
+                f"--resume_step {opt.resume_step} under --multihost needs the resume checkpoint "
+                f"on storage shared by every process; {path} is not visible on rank {rank}")
         load_resume_checkpoint(resume_dir, opt.resume_step, state)
-        print(f"resumed from step {opt.resume_step}")
+        if is_main:
+            print(f"resumed from step {opt.resume_step}")
 
-    logger = MetricsLogger(None if opt.report_to == "none" else opt.report_to)
+    logger = MetricsLogger(None if opt.report_to == "none" or not is_main else opt.report_to)
     text_encoders = (te1, te2) if opt.train_text_encoder else None
 
     def save(step):
@@ -459,48 +579,79 @@ def main(argv=None, device="cuda") -> int:
         save_delta_checkpoint(path, state, modifier_tokens, ids1, ids2, text_encoders)
         return path
 
+    def save_resume(step):
+        # every rank enters: rank 0 writes, the others wait until it has
+        if is_main:
+            save_resume_checkpoint(resume_dir, state, step=step)
+        barrier()
+
     # state.step counts micro steps; the logged steps, the save cadence and
     # the checkpoint names count optimizer steps
     start_micro = state.step
     start_opt_step = start_micro // accum
     micro_steps = (opt.max_train_steps - start_opt_step) * accum
-    batch_iter = ds.batches(opt.train_batch_size, micro_steps, start=start_micro)
+    # --dp_devices: every rank loads the global batch and keeps its rows;
+    # --multihost: each rank loads only its own
+    load_rows = opt.train_batch_size * (1 if multihost else n_dev)
+    batch_iter = ds.batches(load_rows, micro_steps, start=start_micro)
     if opt.dataloader_num_workers > 0:
         batch_iter = prefetch_batches(batch_iter, depth=opt.dataloader_num_workers)
     step_s, encode_s, save_s = [], 0.0, 0.0
     for i, batch_np in enumerate(batch_iter):
         micro = start_micro + i
         t0 = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
         for k in ("ids_one", "ids_two"):
             batch[k] = batch[k].long()
-        batch["latents"] = encode_latents(vae, batch.pop("pixel_values"),
-                                          generator=_generator(device, opt.seed, 1, micro))
+        total = batch["is_prior"].shape[0] * (n_dev if multihost else 1)
+        if mesh is None:
+            batch = {k: v.to(device) for k, v in batch.items()}
+        elif multihost:
+            batch = place_global_batch(mesh, batch)[0]
+        else:
+            batch = shard_batch(mesh, batch)[0]
+        b = batch["is_prior"].shape[0]
+        lo = rank * b
+        pixels = batch.pop("pixel_values")
+        lat_shape = (total, res // latent_factor, res // latent_factor, 4)
+        if multihost:  # each process's own rows: its own posterior-noise stream
+            noise = torch.randn((b, *lat_shape[1:]), device=device,
+                                generator=_generator(device, opt.seed + rank, 1, micro))
+        else:
+            noise = torch.randn(lat_shape, device=device,
+                                generator=_generator(device, opt.seed, 1, micro))[lo:lo + b]
+        batch["latents"] = encode_latents(vae, pixels, noise=noise)
         t1 = sync()
-        metrics = train_step(state, batch, generator=_generator(device, opt.seed, 0, micro))
+        timesteps, step_noise = draw_noise(batch["latents"].new_empty(lat_shape), tcfg,
+                                           _generator(device, opt.seed, 0, micro))
+        metrics = train_step(state, batch, timesteps=timesteps[lo:lo + b],
+                             noise=step_noise[lo:lo + b])
         t2 = sync()
         encode_s += t1 - t0
         step_s.append(t2 - t1)
         opt_step, at_boundary = divmod(micro + 1, accum)
         if at_boundary == 0:
             logger.log(opt_step, {k: float(v) for k, v in metrics.items()})
-            if opt_step % 10 == 1 or opt_step == opt.max_train_steps:
+            if is_main and (opt_step % 10 == 1 or opt_step == opt.max_train_steps):
                 print(f"step {opt_step}: loss {float(metrics['loss']):.4f}")
             if opt_step > start_opt_step and opt_step % opt.save_steps == 0:
-                path = save(opt_step)
-                save_resume_checkpoint(resume_dir, state, step=opt_step)
+                path = save(opt_step) if is_main else None
+                save_resume(opt_step)
                 save_s += sync() - t2
-                print(f"saved {path}")
+                if is_main:
+                    print(f"saved {path}")
 
     t0 = time.perf_counter()
-    final = save(state.step // accum)
+    if is_main:
+        final = save(state.step // accum)
+        print(f"saved {final}")
     save_s += sync() - t0
-    print(f"saved {final}")
     logger.close()
     timings.update(vae_encode_s=encode_s, save_s=save_s, steps=len(step_s),
                    first_step_s=step_s[0] if step_s else None,
                    step_s=statistics.median(step_s[1:]) if len(step_s) > 1 else None)
-    print("timings: " + json.dumps(timings))
+    if is_main:
+        print("timings: " + json.dumps(timings))
     return 0
 
 

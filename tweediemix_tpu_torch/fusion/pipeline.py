@@ -19,6 +19,14 @@ the pipeline also runs from a UNet and a VAE that already hold their
 weights (``from_random_weights``, or converted JAX trees) and precomputed
 text embeddings.
 
+``sample(..., mesh_devices=n)`` shards every UNet forward's rows over a
+one-axis mesh (``parallel/mesh.py``): ``n`` devices (``cuda:0`` ..
+``cuda:n-1``; on the CPU, the CPU n times) or a ``Mesh``, as the JAX
+package's ``sample`` does. The meshed sampler runs each shard on its
+device's UNet replica and, as in the JAX package, without the cross-K/V
+cache, so a meshed W8A8 sample quantises the K/V projections the cache
+would have run in float.
+
 Numerics: the reference decodes in fp32. cuDNN would run fp32 convolutions
 in TF32 by default, so the pipeline turns TF32 off for matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and convolutions
@@ -28,6 +36,7 @@ in TF32 by default, so the pipeline turns TF32 off for matmuls
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from typing import List, Optional, Sequence
@@ -51,6 +60,7 @@ from tweediemix_tpu_torch.models.vae import (
     postprocess_image,
     unscale_latents,
 )
+from tweediemix_tpu_torch.parallel.mesh import as_mesh, replicate, seed_sharded_unet_fn
 from tweediemix_tpu_torch.schedulers.ddim import DDIMTable
 from tweediemix_tpu_torch.utils.image import write_png
 
@@ -102,6 +112,9 @@ class TweedieMixPipeline:
             decode_preview_fn=self.decode_preview, segment_fn=segment_fn,
             kv_builder=self._kv_builder,
         )
+        # samplers by mesh (1: unsharded, the one built here); ``sampler``
+        # is the one the last sample() ran
+        self._samplers = {1: self.sampler}
         # wall seconds of each phase of the last sample(): the sampler's
         # phases plus the final decode
         self.phase_seconds: dict[str, float] = {}
@@ -233,13 +246,13 @@ class TweedieMixPipeline:
 
     # -- sampling ----------------------------------------------------------------
 
-    def _unet_fn(self, x, t, ctx, pooled, idx, cross_kv=None):
+    def _unet_fn(self, x, t, ctx, pooled, idx, cross_kv=None, unet=None):
         cfg = self.fusion_config
         time_ids = torch.tensor(
             [[cfg.height, cfg.width, 0, 0, cfg.height, cfg.width]],
             dtype=torch.float32, device=x.device,
         ).expand(x.shape[0], 6)
-        return self.unet(x, t, ctx, pooled, time_ids, idx, cross_kv=cross_kv)
+        return (unet or self.unet)(x, t, ctx, pooled, time_ids, idx, cross_kv=cross_kv)
 
     def _kv_builder(self, ctx_rows, idx):
         return precompute_cross_kv(self.unet, ctx_rows, idx)
@@ -254,11 +267,31 @@ class TweedieMixPipeline:
         z = unscale_latents(x.float(), self.vae.config)
         return postprocess_image(self.vae.decode(z))
 
+    def sampler_for(self, mesh_devices=1) -> FusionSampler:
+        """The sampler for ``mesh_devices`` (an int or a ``Mesh``), built at
+        its first use and kept: over a mesh, ``seed_sharded_unet_fn`` on one
+        UNet replica per device and no cross-K/V cache (the sharded call
+        owns its row layout, as in the JAX package)."""
+        if mesh_devices == 1:
+            return self._samplers[1]
+        key = mesh_devices
+        if key not in self._samplers:
+            mesh = as_mesh(mesh_devices, self.device)
+            fns = [functools.partial(self._unet_fn, unet=unet)
+                   for unet in replicate(mesh, self.unet)]
+            self._samplers[key] = FusionSampler(
+                self.table, self.fusion_config, seed_sharded_unet_fn(mesh, fns),
+                decode_preview_fn=self.decode_preview, segment_fn=self._samplers[1].segment_fn,
+            )
+        return self._samplers[key]
+
     @torch.inference_mode()
     def sample(self, embeds: TextEmbeds, seed: int = 0, fg_masks=None, num_seeds: int = 1,
-               x_init: Optional[torch.Tensor] = None):
+               x_init: Optional[torch.Tensor] = None, mesh_devices=1):
         """Run the fusion trajectory and decode each seed; returns
-        [S, H, W, 3] in [0, 1]."""
+        [S, H, W, 3] in [0, 1]. ``mesh_devices`` > 1 (or a ``Mesh``) shards
+        every forward's rows over that many devices (``sampler_for``)."""
+        self.sampler = self.sampler_for(mesh_devices)
         x = self.sampler.run(embeds, seed, fg_masks=fg_masks, num_seeds=num_seeds, x_init=x_init)
         t0 = time.perf_counter()
         imgs = torch.cat([self.decode_final(x[s : s + 1]) for s in range(x.shape[0])], dim=0)

@@ -2,8 +2,9 @@
 
 Each kernel source under ``tweediemix_tpu_torch/csrc/`` exposes a plain C
 interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library under ``build/`` at the repository root (listed in
-``.gitignore``) and loaded with ``ctypes``. The library's file name carries a
+shared library under ``build_dir()`` (``build/`` at the repository root,
+listed in ``.gitignore``, unless ``utils/compile_cache.py`` points it
+elsewhere) and loaded with ``ctypes``. The library's file name carries a
 hash of the source, of every header it includes from ``csrc/`` (such as
 ``hopper.cuh``) and of the flags, so an edited source or header is rebuilt
 and a stale library is never loaded. Nothing is built or imported when this
@@ -24,12 +25,27 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+# where libraries are built and loaded from when it is not BUILD_DIR
+# (``utils.compile_cache.enable_compile_cache``)
+_build_dir_override: Path | None = None
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def build_dir() -> Path:
+    """The directory the kernels are built into and loaded from:
+    ``BUILD_DIR`` unless ``set_build_dir`` chose another."""
+    return BUILD_DIR if _build_dir_override is None else _build_dir_override
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` (None: back to ``BUILD_DIR``)."""
+    global _build_dir_override
+    _build_dir_override = None if path is None else Path(path)
 
 
 def find_nvcc() -> str:
@@ -62,14 +78,14 @@ def local_headers(src: Path) -> list[Path]:
 
 
 def library_path(name: str) -> Path:
-    """``build/lib<name>_<hash>.so``, the hash over the source, its local
-    headers and the flags."""
+    """``build_dir()/lib<name>_<hash>.so``, the hash over the source, its
+    local headers and the flags."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
     for header in local_headers(src):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_library(name: str) -> Path:
@@ -80,8 +96,8 @@ def build_library(name: str) -> Path:
     if out.exists():
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
@@ -89,7 +105,7 @@ def build_library(name: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
         # ptxas -v resource usage (registers, shared memory, spills)
-        (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
+        (out.parent / f"{name}.ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

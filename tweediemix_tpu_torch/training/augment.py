@@ -7,7 +7,8 @@ resize of the instance image, pasted on a black canvas normalised to
 [-1, 1], and the latent-resolution validity mask of the pasted region shrunk
 by one latent pixel per side. ``resize_crop_normalize`` is the class-image
 transform: a shorter-side resize, a crop and the same normalisation. The
-library goes to ``build/`` at the repository root under a name that hashes
+library goes to the kernels' build directory (``build/`` at the repository
+root unless ``utils/compile_cache.py`` chose another) under a name that hashes
 the source and the flags, like the CUDA kernels (``ops/cuda_build.py``).
 Nothing is built when this module is imported; a library that cannot be
 built raises (the data path never falls back to numpy). The numpy versions
@@ -27,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-from tweediemix_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR
+from tweediemix_tpu_torch.ops.cuda_build import CSRC_DIR, build_dir
 
 SOURCE = CSRC_DIR / "augment.cpp"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -35,7 +36,7 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 def library_path() -> Path:
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libaugment_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libaugment_{digest.hexdigest()[:16]}.so"
 
 
 def build_library() -> Path:
@@ -47,8 +48,8 @@ def build_library() -> Path:
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found: the training data's augment library cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
         proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", tmp],

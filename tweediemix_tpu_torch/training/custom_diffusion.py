@@ -94,22 +94,39 @@ def draw_noise(latents: torch.Tensor, cfg: TrainConfig, generator: Optional[torc
     return t, noise
 
 
+def loss_counts(batch_rows: int, is_prior: Optional[torch.Tensor], device=None) -> torch.Tensor:
+    """[rows, instance rows, prior rows] (fp32) of a batch, the divisors of
+    ``diffusion_loss``."""
+    prior = torch.zeros((), device=device) if is_prior is None else is_prior.float().sum()
+    rows = torch.full_like(prior, float(batch_rows))
+    return torch.stack([rows, rows - prior, prior])
+
+
 def diffusion_loss(pred: torch.Tensor, noise: torch.Tensor, mask: torch.Tensor,
-                   is_prior: Optional[torch.Tensor], cfg: TrainConfig):
+                   is_prior: Optional[torch.Tensor], cfg: TrainConfig,
+                   counts: Optional[torch.Tensor] = None):
     """Masked MSE of the eps prediction (fp32): per row, the squared error
     summed over the pixels where ``mask`` [B, h, w, 1] is set and over the
     channels, over the count of those pixels; with prior preservation the
     instance rows' mean plus ``prior_loss_weight`` times the prior rows'
-    plain MSE. Returns (loss, metrics)."""
+    plain MSE. Returns (loss, metrics).
+
+    ``counts`` (``loss_counts`` of the whole batch) is given when these
+    rows are one rank's share of a data-parallel batch: the means then
+    divide by the whole batch's counts, so the ranks' losses, and their
+    gradients, sum to the whole batch's. (A contiguous split of the
+    [instance rows; prior rows] layout can leave a rank with rows of one
+    kind only, so dividing by its own counts would not.)"""
     se = (pred - noise) ** 2
     masked_mse = (se * mask).sum(dim=(1, 2, 3)) / mask.sum(dim=(1, 2, 3)).clamp(min=1.0)
     if is_prior is None or not cfg.with_prior_preservation:
-        loss = masked_mse.mean()
+        loss = masked_mse.mean() if counts is None else masked_mse.sum() / counts[0]
         return loss, {"loss": loss}
     plain_mse = se.mean(dim=(1, 2, 3))
     inst_w = 1.0 - is_prior
-    inst = (masked_mse * inst_w).sum() / inst_w.sum().clamp(min=1.0)
-    prior = (plain_mse * is_prior).sum() / is_prior.sum().clamp(min=1.0)
+    n_inst, n_prior = (inst_w.sum(), is_prior.sum()) if counts is None else (counts[1], counts[2])
+    inst = (masked_mse * inst_w).sum() / n_inst.clamp(min=1.0)
+    prior = (plain_mse * is_prior).sum() / n_prior.clamp(min=1.0)
     total = inst + cfg.prior_loss_weight * prior
     return total, {"loss": total, "instance_loss": inst, "prior_loss": prior}
 

@@ -34,11 +34,13 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from tweediemix_tpu_torch.concepts.delta import save_reference_delta
+from tweediemix_tpu_torch.parallel.mesh import all_reduce_sum
 from tweediemix_tpu_torch.schedulers.ddim import add_noise
 from tweediemix_tpu_torch.training.custom_diffusion import (
     TrainConfig,
     diffusion_loss,
     draw_noise,
+    loss_counts,
     make_optimizer,
     trainable_mask,
 )
@@ -156,7 +158,8 @@ def encode_latents(vae, pixels: torch.Tensor, noise: Optional[torch.Tensor] = No
 
 def make_full_train_step(unet: nn.Module, te1: nn.Module, te2: nn.Module, cfg: TrainConfig,
                          acp: torch.Tensor, row_mask_1: Optional[torch.Tensor],
-                         row_mask_2: Optional[torch.Tensor], time_ids: torch.Tensor):
+                         row_mask_2: Optional[torch.Tensor], time_ids: torch.Tensor,
+                         data_parallel: bool = False):
     """``step(state, batch, generator=None, timesteps=None, noise=None) ->
     metrics``. ``batch``: latents [B, h, w, 4] (encoded and scaled), mask
     [B, h, w, 1], ids_one/ids_two [B, 77], is_prior [B], all on the UNet's
@@ -164,7 +167,14 @@ def make_full_train_step(unet: nn.Module, te1: nn.Module, te2: nn.Module, cfg: T
     ``timesteps``/``noise`` are given, differentiates the loss with respect
     to ``state.params``, zeroes the non-modifier rows of the token tables'
     gradients, hands them to ``state.optimizer`` and counts the micro
-    step."""
+    step.
+
+    With ``data_parallel`` the batch is this rank's share of a global batch
+    (``torch.distributed`` is initialised; ``timesteps``/``noise`` are then
+    this rank's rows of the global draw): the loss divides by the global
+    batch's counts (``diffusion_loss``), the trainable gradients are summed
+    over the ranks before the row masks and the optimizer's clip, so every
+    rank takes the same step, and the metrics are the global batch's."""
     row_masks = {f"te1/{TOKEN_TABLE}": row_mask_1, f"te2/{TOKEN_TABLE}": row_mask_2}
 
     def step(state: FullTrainState, batch, generator=None, timesteps=None, noise=None):
@@ -179,8 +189,15 @@ def make_full_train_step(unet: nn.Module, te1: nn.Module, te2: nn.Module, cfg: T
         ctx = torch.cat([pen1, pen2], dim=-1)
         noisy = add_noise(latents, noise, timesteps, acp)
         pred = unet(noisy, timesteps, ctx, pooled, time_ids.expand(b, -1))
-        loss, metrics = diffusion_loss(pred, noise, batch["mask"], batch["is_prior"], cfg)
+        counts = None
+        if data_parallel:
+            counts = loss_counts(b, batch["is_prior"], latents.device)
+            all_reduce_sum([counts])
+        loss, metrics = diffusion_loss(pred, noise, batch["mask"], batch["is_prior"], cfg, counts)
         loss.backward()
+        if data_parallel:
+            all_reduce_sum([p.grad for p in state.params.values() if p.grad is not None])
+            metrics = dict(zip(metrics, _summed([v.detach() for v in metrics.values()])))
         for key, row_mask in row_masks.items():
             p = state.params.get(key)
             if row_mask is not None and p is not None and p.grad is not None:
@@ -191,6 +208,14 @@ def make_full_train_step(unet: nn.Module, te1: nn.Module, te2: nn.Module, cfg: T
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def _summed(values):
+    """Scalars summed over the ranks (each rank's loss is its share of the
+    global batch's)."""
+    flat = torch.stack(values)
+    all_reduce_sum([flat])
+    return list(flat.unbind())
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,15 @@ loop).
 The context tokens, the projected image latents and every spatial
 cross-attention's K/V run once per trajectory (``precompute_video_cache``).
 ``generate`` takes the text contexts and the CLIP image embedding as
-tensors; ``cli/run_video.py`` encodes them from a prompt and a picture. The
-JAX package's sharded loop over a device mesh has no one-card counterpart
-here.
+tensors; ``cli/run_video.py`` encodes them from a prompt and a picture.
+
+``generate(..., mesh_devices=n)`` shards the clips over a one-axis mesh
+(``parallel/mesh.py``), the counterpart of the JAX package's
+``_sharded_loop``: each device's UNet replica runs the whole loop for its
+clips' interleaved rows (so each clip's CFG pair stays on one device), with
+its own step-invariant cache, and the shards step in lockstep with no
+communication until the final latents are gathered for the decode on the
+first device.
 
 Numerics: the VAE runs in fp32 with TF32 off for matmuls and convolutions in
 this process, as in ``fusion.pipeline``.
@@ -44,6 +50,14 @@ from tweediemix_tpu_torch.models.vae import (
     postprocess_image,
     scale_latents,
     unscale_latents,
+)
+from tweediemix_tpu_torch.parallel.mesh import (
+    Mesh,
+    as_mesh,
+    gather_rows,
+    on_device,
+    replicate,
+    run_sharded,
 )
 from tweediemix_tpu_torch.schedulers.ddim import cfg as cfg_combine, make_betas, video_rotation_step
 from tweediemix_tpu_torch.utils.image import write_gif
@@ -172,18 +186,30 @@ class I2VPipeline:
         the interleaved conditioning rows [2B, ...]; ``cache`` is
         ``precompute_video_cache``'s output for those rows. Returns the
         final latent."""
+        return self._loop_shards([(self.unet, x, (ctx2, image_latents2, image_emb2, fps2),
+                                   cache)])[0]
+
+    def _loop_shards(self, shards) -> list:
+        """``loop`` for several (unet, x, rows, cache) shards at once, each
+        on its own device: every step runs each shard's UNet call in turn,
+        so the shards' devices work side by side. Returns each shard's
+        final latent."""
         cfg, tbl = self.config, self.table
-        cached_ctx, cached_il, cross_kv = cache
-        b = x.shape[0]
+        xs = [x for _, x, _, _ in shards]
         for i, t in enumerate(tbl.timesteps):
             inject = i < cfg.injection_steps
-            eps = self.unet(x.repeat_interleave(2, dim=0), int(t), ctx2, image_latents2,
-                            image_emb2, fps2, inject, inject, cfg.interp_ratio,
-                            cached_ctx=cached_ctx, cached_il=cached_il, cross_kv=cross_kv)
-            er = eps.reshape(b, 2, *eps.shape[1:])
-            e = cfg_combine(er[:, 0], er[:, 1], cfg.guidance_scale)
-            x = video_rotation_step(x, e, tbl.alpha(t), tbl.alpha(int(t) - tbl.skip))
-        return x
+            for k, (unet, _, (ctx2, image_latents2, image_emb2, fps2), cache) in enumerate(shards):
+                cached_ctx, cached_il, cross_kv = cache
+                x = xs[k]
+                b = x.shape[0]
+                with on_device(x.device):
+                    eps = unet(x.repeat_interleave(2, dim=0), int(t), ctx2, image_latents2,
+                               image_emb2, fps2, inject, inject, cfg.interp_ratio,
+                               cached_ctx=cached_ctx, cached_il=cached_il, cross_kv=cross_kv)
+                    er = eps.reshape(b, 2, *eps.shape[1:])
+                    e = cfg_combine(er[:, 0], er[:, 1], cfg.guidance_scale)
+                    xs[k] = video_rotation_step(x, e, tbl.alpha(t), tbl.alpha(int(t) - tbl.skip))
+        return xs
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -192,17 +218,23 @@ class I2VPipeline:
     @torch.inference_mode()
     def generate(self, text_ctx, uncond_ctx, image, image_embedding, seed: int = 0,
                  x_init: Optional[torch.Tensor] = None,
-                 posterior_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 posterior_noise: Optional[torch.Tensor] = None,
+                 mesh_devices=1) -> torch.Tensor:
         """Decoded video [F, H, W, 3] in [0, 1] (one clip) or [B, F, H, W, 3].
 
         ``text_ctx``/``uncond_ctx`` [1 or B, S, D] and ``image_embedding``
         [1 or B, 1, D] broadcast over the B clips of ``image`` [B, H, W, 3]
         (in [-1, 1]). Noise comes from ``seed`` (clip b's initial latent and
         VAE posterior noise from their own generators), unless ``x_init``
-        [B, F, h, w, 4] and ``posterior_noise`` [B, h, w, 4] are given."""
+        [B, F, h, w, 4] and ``posterior_noise`` [B, h, w, 4] are given.
+        ``mesh_devices`` > 1 (or a ``Mesh``) shards the clips over that many
+        devices; B must divide over them."""
         cfg = self.config
         dev = self.device
         b = image.shape[0]
+        mesh = None if mesh_devices == 1 else as_mesh(mesh_devices, dev)
+        if mesh is not None and b % mesh.size:
+            raise AssertionError(f"clip batch {b} must divide over {mesh.size} devices")
         t0 = time.perf_counter()
 
         def rows(a):
@@ -223,12 +255,17 @@ class I2VPipeline:
         emb = rows(image_embedding)
         img_emb2 = interleave(torch.zeros_like(emb), emb)  # the uncond row's zero embedding
         fps2 = torch.full((2 * b,), float(cfg.fps), device=dev)
-        cache = precompute_video_cache(self.unet, ctx2, img_lat2, img_emb2, fps2)
-        self._sync()
-        t1 = time.perf_counter()
-
         x = self.init_latents(seed, b) if x_init is None else x_init.to(dev, torch.float32)
-        x = self.loop(x, ctx2, img_lat2, img_emb2, fps2, cache)
+        if mesh is None:
+            cache = precompute_video_cache(self.unet, ctx2, img_lat2, img_emb2, fps2)
+            self._sync()
+            t1 = time.perf_counter()
+            x = self.loop(x, ctx2, img_lat2, img_emb2, fps2, cache)
+        else:
+            shards = self._shards(mesh, x, (ctx2, img_lat2, img_emb2, fps2))
+            self._sync()
+            t1 = time.perf_counter()
+            x = gather_rows(mesh, self._loop_shards(shards), dev)
         self._sync()
         t2 = time.perf_counter()
 
@@ -238,6 +275,21 @@ class I2VPipeline:
                                   decode=time.perf_counter() - t2)
         self.last_latent = x
         return out[0] if b == 1 else out
+
+    def _shards(self, mesh: Mesh, x, rows) -> list:
+        """This process's (unet, x, rows, cache) shards of the clips: shard i
+        takes clips [i·B/n, (i+1)·B/n), i.e. their interleaved rows, on
+        mesh device i's replica, with its own step-invariant cache."""
+        per = x.shape[0] // mesh.size
+        unets = replicate(mesh, self.unet)
+        shards, calls = [], []
+        for i in mesh.local_shards():
+            device = mesh.devices[i]
+            shard_rows = tuple(a[2 * i * per:2 * (i + 1) * per].to(device) for a in rows)
+            shards.append((unets[i], x[i * per:(i + 1) * per].to(device), shard_rows))
+            calls.append((i, (unets[i], *shard_rows)))
+        caches = run_sharded(mesh, [precompute_video_cache] * mesh.size, calls)
+        return [(*shard, cache) for shard, cache in zip(shards, caches)]
 
     @torch.inference_mode()
     def decode_video(self, latents: torch.Tensor) -> torch.Tensor:

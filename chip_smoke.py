@@ -100,7 +100,10 @@ JAX or of the JAX package. Phases:
    and the bf16 kernel's held at 0, then one batch-4 call profiled with the int8 core on and off;
 6. video: the short-sequence (frame-axis) kernel against its plain version
    at the video path's five shapes (as views of a merged qkv and
-   contiguous) and its edge cases; a small UNet3D and a 3-step video
+   contiguous) and its edge cases (each with a sentinel around the
+   output), timed on the device alone (a CUDA graph of
+   launches, warm and with the L2 flushed) and by the wrapper's host
+   microseconds per call; a small UNet3D and a 3-step video
    trajectory on the card (bf16, both kernels) against the CPU (fp32, plain
    versions); the I2VGen-XL image-to-video path at full width
    (``UNet3DConfig.i2vgen()`` in bf16 with seeded random weights, fp32 VAE,
@@ -224,8 +227,14 @@ VIDEO_FLASH_SHAPES = [(160, 4096, 4096, 64), (320, 1024, 1024, 64)]
 # pixels, S = 16 frames), then the edge cases
 SHORT_MAIN_SHAPES = [(8192, 16, 8, 64), (8192, 16, 5, 64), (2048, 16, 10, 64),
                      (512, 16, 20, 64), (128, 16, 20, 64)]
-SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 32, 5, 64),
-                     (257, 16, 4, 32), (257, 16, 2, 128), (100, 32, 3, 128)]
+# edge cases: S from 1 to 32, dh 32 and 128, fewer bands than SMs (3 rows);
+# on an H100 tile_plan gives the last three tiles of 2, 4 and 2 pixel rows
+# that N does not fill, the third at S past 16
+SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 17, 5, 64),
+                     (300, 32, 5, 64), (257, 16, 4, 32), (257, 16, 2, 128), (100, 32, 3, 128),
+                     (257, 7, 5, 32), (3, 16, 2, 64), (2049, 16, 5, 64), (4097, 7, 5, 32),
+                     (1699, 17, 5, 32)]
+SHORT_CANARY = 4096  # bf16 elements of a sentinel before and after each case's output
 KERNELS = ("flash_attention", "flash_attention_int8", "short_attention")
 
 
@@ -244,25 +253,6 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
-
-
-def host_us_per_call(fn, calls: int = 200, repeats: int = 5) -> float:
-    """Host microseconds to enqueue one call, timed while the device is kept
-    busy (so the launch queue neither drains nor fills); the median of
-    ``repeats`` runs of ``calls`` calls."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(repeats):
-        torch.cuda._sleep(500_000_000)  # ~0.3 s of device time
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        runs.append((time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-    return sorted(runs)[repeats // 2]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -310,6 +300,7 @@ def phase_kernels() -> list:
         flash_attention,
         flash_attention_reference,
     )
+    from tweediemix_tpu_torch.utils.profiling import host_us_per_call
 
     results = []
     for bh, sq, sk, dh in MAIN_SHAPES + EDGE_SHAPES + VIDEO_FLASH_SHAPES + S256_SHAPES:
@@ -394,6 +385,7 @@ def phase_kernels_int8() -> list:
         quantize_qkv_int8,
         quantize_qkv_int8_fused,
     )
+    from tweediemix_tpu_torch.utils.profiling import host_us_per_call
 
     lib, _ = flash_module._launcher_int8()
     for dh, block in INT8_BLOCK_K.items():  # the plain version's block_k is the kernel's tile
@@ -2260,21 +2252,32 @@ def phase_w8a8_main_path() -> dict:
 def phase_kernels_short() -> list:
     """The short-sequence kernel against its plain version on the same bf16
     inputs: q/k/v as views of one merged projection (as the model gives
-    them) and contiguous, at the video path's shapes and the edge cases."""
+    them) and contiguous, at the video path's shapes and the edge cases,
+    each written into a buffer with a sentinel before and after its output
+    that must survive. Times are device-only (``utils/profiling.py``, as
+    ``tools/short_timing.py`` takes them): ``ms`` from a CUDA graph of 50 launches,
+    ``flushed_ms`` with the L2 flushed between launches (the share of the
+    bytes bound is taken from it), and at the main shapes the wrapper's host
+    microseconds per call."""
     import torch
     import torch.nn.functional as F
 
+    from tweediemix_tpu_torch.ops import short_attention as short_module
     from tweediemix_tpu_torch.ops.short_attention import (
         short_seq_attention,
         short_seq_attention_reference,
     )
+    from tweediemix_tpu_torch.tools.short_timing import short_inputs
+    from tweediemix_tpu_torch.utils.profiling import flushed_ms, graph_ms, host_us_per_call
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = []
     cases = [(shape, merged) for shape in SHORT_MAIN_SHAPES for merged in (True, False)]
     cases += [(shape, True) for shape in SHORT_EDGE_SHAPES] + [("negative", False)]
     for shape, merged in cases:
-        gen = torch.Generator(device="cuda").manual_seed(len(results) + 3)
+        main_shape = shape in SHORT_MAIN_SHAPES
         if shape == "negative":  # anti-aligned q/k: scores far below zero
+            gen = torch.Generator(device="cuda").manual_seed(len(results) + 3)
             n, s, heads, dh = 64, 16, 2, 32
             q = torch.full((n, s, heads * dh), 8.0, device="cuda")
             k = -8.0 * (1.0 + 0.01 * torch.randn(q.shape, generator=gen, device="cuda"))
@@ -2282,40 +2285,53 @@ def phase_kernels_short() -> list:
             q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         else:
             n, s, heads, dh = shape
-            d = heads * dh
-            if merged:
-                qkv = torch.randn((n, s, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
-                q, k, v = qkv.chunk(3, dim=-1)
-            else:
-                q, k, v = (torch.randn((n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-                           for _ in range(3))
-        out = short_seq_attention(q, k, v, heads)
+            q, k, v = short_inputs(n, s, heads, dh, merged, seed=len(results) + 3)
+        d = heads * dh
+        plan = short_module.tile_plan(n, s, heads, dh, sms)
+        fill = torch.finfo(torch.bfloat16).max
+        big = torch.full((n * s * d + 2 * SHORT_CANARY,), fill, device="cuda", dtype=torch.bfloat16)
+        out = big[SHORT_CANARY:SHORT_CANARY + n * s * d].view(n, s, d)
+        short_module._launch_cuda(q, k, v, heads, dh**-0.5, out=out)
         ref = short_seq_attention_reference(q.float(), k.float(), v.float(), heads)
         torch.cuda.synchronize()
+        canary_ok = bool((big[:SHORT_CANARY] == fill).all()
+                         and (big[SHORT_CANARY + n * s * d:] == fill).all())
+        del big
+        if not canary_ok:
+            fail(f"short_attention wrote outside its output at {shape}")
         if not torch.isfinite(out).all():
             fail(f"short_attention non-finite output at {shape}")
         err = (out.float() - ref).abs().max().item()
         rel = err / ref.abs().max().item()
-        ms = cuda_ms(lambda: short_seq_attention(q, k, v, heads), 50)
-        plain_ms = cuda_ms(lambda: short_seq_attention_reference(q, k, v, heads), 10)
-        q4, k4, v4 = (t.view(n, s, heads, dh).transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
-        d = heads * dh
-        nbytes = 4.0 * n * s * d * 2  # q, k, v read once, o written once, bf16
-        flops = 4.0 * n * s * s * d
-        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
-        row = dict(shape=[n, s, heads, dh] if shape != "negative" else "negative",
-                   merged_qkv=merged, max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   gbytes_per_s=nbytes / ms / 1e6)
-        log(f"short_attention {shape} {'merged qkv' if merged else 'contiguous'}: max_abs_err "
-            f"{err:.3e} rel_err {rel:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
-            f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"{row['gbytes_per_s']:.0f} GB/s")
         if not rel <= FLASH_REL_TOL:
             fail(f"short_attention disagrees with its plain version at {shape}: "
                  f"max err / max |plain| = {rel:.3e} > {FLASH_REL_TOL}")
+
+        def kernel():
+            return short_seq_attention(q, k, v, heads)
+
+        ms, cold_ms = graph_ms(kernel), flushed_ms(kernel)
+        plain_ms = graph_ms(lambda: short_seq_attention_reference(q, k, v, heads), 10)
+        q4, k4, v4 = (t.view(n, s, heads, dh).transpose(1, 2) for t in (q, k, v))
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        nbytes = 4.0 * n * s * d * 2  # q, k, v read once, o written once, bf16
+        flops = 4.0 * n * s * s * d
+        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        row = dict(shape=[n, s, heads, dh] if shape != "negative" else "negative",
+                   merged_qkv=merged, plan=dataclasses.asdict(plan),
+                   max_abs_err=err, rel_err=rel, canary_ok=canary_ok, ms=ms, flushed_ms=cold_ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   share_of_bound=bound_ms / cold_ms, gbytes_per_s=nbytes / cold_ms / 1e6)
+        if main_shape:
+            row["host_us_per_call"] = host_us_per_call(kernel)
+        log(f"short_attention {shape} {'merged qkv' if merged else 'contiguous'} "
+            f"rows {plan.rows}: max_abs_err {err:.3e} rel_err "
+            f"{rel:.3e} ms {ms:.4f} flushed_ms {cold_ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
+            f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({row['bound_by']}) share "
+            f"{row['share_of_bound']:.3f} {row['gbytes_per_s']:.0f} GB/s"
+            + (f" host_us {row['host_us_per_call']:.2f}" if main_shape else ""))
         results.append(row)
     return results
 
@@ -3324,7 +3340,10 @@ def main() -> None:
                             library_ms=None)),
         entry("short_attention", "tweediemix_tpu_torch/csrc/short_attention.cu",
               "tweediemix_tpu/ops/short_attention.py:51", video["runs"][-1]["launches"]["short"],
-              short_rows, cli_video_launches=cli_runs["bf16"]["launches"]["short"],
+              short_rows, flushed_ms=short_rows[0]["flushed_ms"],
+              share_of_bound=short_rows[0]["share_of_bound"],
+              host_us_per_call=short_rows[0]["host_us_per_call"],
+              cli_video_launches=cli_runs["bf16"]["launches"]["short"],
               video_mesh_launches=video["mesh"]["mesh2"]["launches"]["short"],
               video_mesh_unsharded_launches=video["mesh"]["unsharded"]["launches"]["short"],
               cli_video_w8a8_launches=cli_runs["w8a8"]["launches"]["short"]),

@@ -13,8 +13,11 @@ alone reads up to ~4e-3.
 """
 
 import ctypes
+import json
 import os
 import shutil
+import subprocess
+from pathlib import Path
 
 import pytest
 import torch
@@ -38,7 +41,7 @@ from tweediemix_tpu_torch.ops.flash_attention import (
 )
 
 from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
-from tweediemix_tpu_torch.tools import int8_variants
+from tweediemix_tpu_torch.tools import int8_variants, short_timing
 
 # each xdist worker takes its share of the host's cores (a serial run keeps them all)
 torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
@@ -49,8 +52,13 @@ SHORT_TOL = 1e-2
 # 0-2, mid), then the edge cases
 SHORT_MAIN_SHAPES = [(8192, 16, 8, 64), (8192, 16, 5, 64), (2048, 16, 10, 64),
                      (512, 16, 20, 64), (128, 16, 20, 64)]
-SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 32, 5, 64),
-                     (257, 16, 4, 32), (257, 16, 2, 128), (100, 32, 3, 128), (33, 20, 6, 32)]
+SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 17, 5, 64),
+                     (300, 32, 5, 64), (257, 16, 4, 32), (257, 16, 2, 128), (100, 32, 3, 128),
+                     (33, 20, 6, 32), (257, 7, 5, 32), (3, 16, 2, 64)]
+# shapes whose plan on an H100 has tiles of several pixel rows that N does
+# not fill: (N, S, heads, dh) and the rows per tile
+SHORT_RAGGED_SHAPES = [((2049, 16, 5, 64), 2), ((4097, 7, 5, 32), 4), ((1699, 17, 5, 32), 2)]
+H100_SMS = 132
 
 
 def _card():
@@ -372,20 +380,24 @@ def test_build_reuses_the_library_of_the_same_source(tmp_path, monkeypatch):
 
 
 def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
-    """An edited header gives a new library path (so it is rebuilt), and a
-    source that includes no header keeps its path."""
-    assert [h.name for h in cuda_build.local_headers(cuda_build.CSRC_DIR / "flash_attention.cu")] \
-        == ["hopper.cuh"]
+    """An edited header gives a new library path (so it is rebuilt) to every
+    source that includes it, and a source that includes no header keeps its
+    path."""
+    for name in ("flash_attention", "short_attention"):
+        assert [h.name for h in cuda_build.local_headers(cuda_build.CSRC_DIR / f"{name}.cu")] \
+            == ["hopper.cuh"]
     _copy_sources("flash_attention", tmp_path)
     shutil.copy(cuda_build.CSRC_DIR / "flash_attention.cu", tmp_path)
     shutil.copy(cuda_build.CSRC_DIR / "short_attention.cu", tmp_path)
+    (tmp_path / "plain.cu").write_text('extern "C" int tm_plain() { return 0; }\n')
     monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
-    before = cuda_build.library_path("flash_attention"), cuda_build.library_path("short_attention")
+    names = ("flash_attention", "short_attention", "plain")
+    before = [cuda_build.library_path(name) for name in names]
     header = tmp_path / "hopper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    after = cuda_build.library_path("flash_attention"), cuda_build.library_path("short_attention")
-    assert after[0] != before[0] and after[1] == before[1]
+    after = [cuda_build.library_path(name) for name in names]
+    assert after[0] != before[0] and after[1] != before[1] and after[2] == before[2]
     assert cuda_build.library_path("flash_attention") == after[0]  # stable for the same bytes
 
 
@@ -505,13 +517,46 @@ def test_short_knob_dispatches_to_the_short_kernel_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [shape for shape, _ in SHORT_RAGGED_SHAPES]
+                         + [(3, 16, 2, 64), (300, 7, 4, 64), (100, 32, 3, 128)])
+def test_short_kernel_writes_only_its_output_on_card(shape):
+    """At ragged edges the kernel matches the plain version and leaves a
+    sentinel before and after its output untouched (TMA stores clip frames
+    past S and rows past N)."""
+    _card()
+    n, s, heads, dh = shape
+    q, k, v = _short_case(n, s, heads, dh, n + s + heads, merged=True)
+    guard, numel = 4096, n * s * heads * dh
+    fill = torch.finfo(torch.bfloat16).max
+    big = torch.full((numel + 2 * guard,), fill, device="cuda", dtype=torch.bfloat16)
+    out = big[guard:guard + numel].view(n, s, heads * dh)
+    assert short_module._launch_cuda(q, k, v, heads, dh**-0.5, out=out) is out
+    torch.cuda.synchronize()
+    assert (big[:guard] == fill).all() and (big[guard + numel:] == fill).all()
+    assert _short_rel(q, k, v, heads, out) <= SHORT_TOL
+
+
+@pytest.mark.cuda
+def test_short_plan_shared_memory_agrees_with_the_kernel_on_card():
+    _card()
+    lib, _ = short_module._launcher()
+    fn = lib.tm_short_attention_smem_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, s, heads, dh in _plan_shapes():
+        plan = short_module.tile_plan(n, s, heads, dh, sms)
+        assert fn(s, dh, plan.rows, plan.stages) == plan.smem_bytes
+
+
+@pytest.mark.cuda
 def test_short_check_catches_an_unmasked_frame_on_card(tmp_path, monkeypatch):
     """Mutation check: a copy of the short kernel that does not mask the
-    padded key frames (S = 12 pads to 16) must fail the comparison with the
-    plain version."""
+    padded key frames (S = 12 pads to 16; the padded keys read as zeros and
+    score 0) must fail the comparison with the plain version."""
     _card()
     masked = "const float val = col < s ? sc[j][e] * scale_log2 : kNegInf;"
-    src = (cuda_build.CSRC_DIR / "short_attention.cu").read_text()
+    src = _copy_sources("short_attention", tmp_path)
     assert src.count(masked) == 1
     (tmp_path / "short_attention.cu").write_text(
         src.replace(masked, "const float val = sc[j][e] * scale_log2;"))
@@ -523,6 +568,122 @@ def test_short_check_catches_an_unmasked_frame_on_card(tmp_path, monkeypatch):
     rel = _short_rel(q, k, v, 10, short_seq_attention(q, k, v, 10))
     print(f"short kernel with its padded frames unmasked at S = 12: max err / max |plain| = {rel:.3e}")
     assert rel > SHORT_TOL
+
+
+def _plan_shapes():
+    return (SHORT_MAIN_SHAPES + SHORT_EDGE_SHAPES + [shape for shape, _ in SHORT_RAGGED_SHAPES]
+            + [(1, 1, 1, 32), (4099, 16, 20, 128), (77, 32, 33, 128), (8193, 16, 3, 32),
+               (130, 32, 7, 64)])
+
+
+@pytest.mark.parametrize("shape", _plan_shapes())
+def test_short_plan_covers_every_band_once(shape):
+    """The persistent grid's walk, as the kernel decodes it (block b takes
+    tiles b, b + grid, ...; tile t its rows and head, clipped at N), covers
+    every (pixel row, head) band exactly once, and every consumer warp
+    always meets the same stages."""
+    n, s, heads, dh = shape
+    plan = short_module.tile_plan(n, s, heads, dh, H100_SMS)
+    assert plan.tiles == -(-n // plan.rows) * heads
+    assert 1 <= plan.grid <= min(plan.tiles, plan.blocks_per_sm * H100_SMS)
+    seen = torch.zeros((n, heads), dtype=torch.int32)
+    for b in range(plan.grid):
+        for t in range(b, plan.tiles, plan.grid):
+            for r, h in plan.bands(t):
+                if r < n:
+                    seen[r, h] += 1
+    assert bool((seen == 1).all())
+    assert plan.stages % short_module.CONSUMER_WARPS == 0 and plan.stages >= short_module.CONSUMER_WARPS
+
+
+@pytest.mark.parametrize("shape", _plan_shapes())
+def test_short_plan_respects_tma_and_shared_memory_limits(shape):
+    n, s, heads, dh = shape
+    plan = short_module.tile_plan(n, s, heads, dh, H100_SMS)
+    assert plan.sp in (16, 32) and s <= plan.sp < s + 16
+    assert all(1 <= b <= short_module.MAX_BOX for b in plan.box)
+    assert plan.box[0] * 2 in (64, 128) and dh % plan.box[0] == 0  # within the swizzle span
+    assert plan.tile_bytes % 1024 == 0  # every box starts on the swizzle's 1024-byte period
+    assert plan.smem_bytes == short_module.smem_bytes(plan.sp, dh, plan.rows, plan.stages)
+    assert plan.smem_bytes <= short_module.MAX_SMEM_PER_BLOCK
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= short_module.SMEM_PER_SM
+
+
+def test_short_plan_of_the_video_shapes():
+    """Every consumer warp of the grid gets tiles at the video path's shapes,
+    and the smallest shape still spreads over every SM."""
+    for n, s, heads, dh in SHORT_MAIN_SHAPES:
+        plan = short_module.tile_plan(n, s, heads, dh, H100_SMS)
+        assert plan.grid == plan.blocks_per_sm * H100_SMS
+        assert plan.tiles >= plan.grid * short_module.CONSUMER_WARPS
+    with pytest.raises(ValueError):
+        short_module.tile_plan(8, 33, 2, 64, H100_SMS)
+    with pytest.raises(ValueError):
+        short_module.tile_plan(8, 16, 2, 80, H100_SMS)
+
+
+@pytest.mark.parametrize("shape,rows", SHORT_RAGGED_SHAPES)
+def test_short_ragged_shapes_reach_a_ragged_row_edge(shape, rows):
+    """The ragged cases that chip_smoke.py and the card tests run do have
+    a last tile that N does not fill, at the plan an H100 takes."""
+    n, s, heads, dh = shape
+    plan = short_module.tile_plan(n, s, heads, dh, H100_SMS)
+    assert plan.rows == rows and n % rows
+
+
+def test_short_timing_tool_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        short_timing.main([])
+
+
+def test_short_timing_tool_times_the_video_shapes():
+    assert short_timing.SHAPES == SHORT_MAIN_SHAPES
+    assert sum(short_timing.LAUNCHES_PER_CLIP) == 1700  # 34 launches per UNet call x 50
+    assert short_timing.short_bytes(128, 16, 20, 64) == 4 * 128 * 16 * 20 * 64 * 2
+
+
+def test_short_timing_tool_times_each_tree_in_its_own_process(tmp_path, monkeypatch, capsys):
+    """With --parent, each turn (parent, this, this, parent) runs the tool's
+    own file in a fresh process rooted at its tree, and each tree's rows are
+    the mean of its turns."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls = []
+
+    def fake_run(cmd, cwd, env, capture_output, text):
+        calls.append((cmd, cwd, env["PYTHONPATH"]))
+        ms = 1.0 if cwd == tmp_path else 0.5
+        rows = [dict(shape=list(shape), merged_qkv=merged, rel_err=1e-3, ms=ms,
+                     flushed_ms=ms + len(calls), host_us=30.0)
+                for shape in short_timing.SHAPES for merged in (True, False)]
+        out = "\n".join(["building"] + ["ROW " + json.dumps(r) for r in rows])
+        return subprocess.CompletedProcess(cmd, 0, out, "")
+
+    monkeypatch.setattr(short_timing.subprocess, "run", fake_run)
+    short_timing.main(["--parent", str(tmp_path), "--out", str(tmp_path / "rows.jsonl")])
+    this = short_timing.ROOT
+    assert [(cwd, path) for _, cwd, path in calls] == [
+        (tmp_path, str(tmp_path)), (this, str(this)), (this, str(this)), (tmp_path, str(tmp_path))]
+    assert all(cmd[1:] == [str(Path(short_timing.__file__).resolve()), "--child"]
+               for cmd, _, _ in calls)
+    rows = [json.loads(line) for line in (tmp_path / "rows.jsonl").read_text().splitlines()]
+    assert len(rows) == 2 * 2 * len(short_timing.SHAPES)
+    first = {r["tree"]: r for r in rows if r["shape"] == [8192, 16, 8, 64] and r["merged_qkv"]}
+    assert first["parent"]["ms"] == 1.0 and first["parent"]["flushed_ms"] == 3.5  # turns 1, 4
+    assert first["this"]["ms"] == 0.5 and first["this"]["flushed_ms"] == 3.0  # turns 2, 3
+    assert first["this"]["share_of_bound"] == first["this"]["bound_ms"] / 3.0
+    assert len(capsys.readouterr().out.splitlines()) == len(rows)
+
+
+def test_short_timing_tool_takes_its_timers_by_path():
+    """The tool loads this tree's utils/profiling.py by its path beside
+    another tree's package, so that module imports nothing of the package."""
+    timers = short_timing._timers()
+    assert all(callable(getattr(timers, name)) for name in ("graph_ms", "flushed_ms",
+                                                             "host_us_per_call"))
+    source = Path(timers.__file__).read_text()
+    assert "tweediemix_tpu" not in "".join(line for line in source.splitlines()
+                                           if line.startswith(("import ", "from ")))
 
 
 def test_cpu_tensors_never_reach_the_short_kernel(monkeypatch):

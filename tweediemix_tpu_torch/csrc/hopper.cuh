@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// shared-memory mbarriers, TMA tensor loads from 3-D tensor maps, named
-// barriers, register rebalancing between warpgroups, and warpgroup matrix
-// multiplies (wgmma) with their shared-memory descriptors. Raw PTX, no
-// CUTLASS. A source that includes this header is rebuilt when the header
+// shared-memory mbarriers, TMA tensor loads from 3-D and 4-D tensor maps,
+// TMA tensor stores with their bulk groups, named barriers, register
+// rebalancing between warpgroups, and warpgroup matrix multiplies (wgmma)
+// with their shared-memory descriptors. Raw PTX, no CUTLASS. A source that includes this header is rebuilt when the header
 // changes (ops/cuda_build.py hashes every header a source includes).
 
 #pragma once
@@ -84,6 +84,56 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Copy the box at (c0, c1, c2, c3) (innermost first) of a 4-D tensor map into
+// shared memory at `dst`; completion is counted in bytes on `bar`. Elements
+// outside the tensor are zero-filled (and counted).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copy shared memory at `src`, laid out as one box of a 4-D tensor map, to
+// the box at (c0, c1, c2, c3) of the tensor; elements outside the tensor are
+// not written. The store joins the issuing thread's current bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Closes the issuing thread's bulk group (its TMA stores since the last
+// commit).
+__device__ __forceinline__ void bulk_commit_group() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of the issuing thread's bulk groups have not
+// yet finished reading their shared memory (which may then be rewritten).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_group_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Waits until at most kPending of the issuing thread's bulk groups are not
+// yet complete (their writes to global memory done).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_group() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads of
+// the same memory by the TMA unit (the async proxy), such as a TMA store.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- named barriers and register rebalancing ---------------------------------
@@ -503,6 +553,26 @@ inline bool encode_s8_3d(CUtensorMap* map, const void* ptr, int outer, int rows,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D tensor map over a bf16 tensor of any strides: dims[0..3] innermost
+// first, strides[0..2] the byte strides of dims 1..3 (multiples of 16; the
+// innermost stride is one element), boxes of box[0..3] elements (each at
+// most 256; box[0] * 2 bytes at most the swizzle span). Elements outside the
+// tensor read as zeros and are not written by a store. Returns false if
+// cuTensorMapEncodeTiled refuses it.
+inline bool encode_bf16_4d(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[4],
+                           const uint64_t (&strides)[3], const uint32_t (&box)[4],
+                           CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), d, st, b,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

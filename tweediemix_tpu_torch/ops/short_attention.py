@@ -16,11 +16,14 @@ pre-scaled q) stay behind.
 
 ``short_seq_attention`` launches the kernel for CUDA tensors and raises when
 it cannot; it takes the plain version only for tensors on the CPU.
+``tile_plan`` is the kernel's launch plan (tile shape, ring stages,
+persistent grid), computed here so that the CPU can check it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -30,6 +33,106 @@ from tweediemix_tpu_torch.ops.cuda_build import check_launch, load_library
 
 MAX_S = 32
 HEAD_DIMS = (32, 64, 128)
+CONSUMER_WARPS = 4  # csrc/short_attention.cu kConsumers: the stages are a multiple
+MAX_SMEM_PER_BLOCK = 232448  # sm_90's opt-in shared memory per block (kMaxSmem)
+SMEM_PER_SM = 233472  # sm_90's shared memory per SM; each resident block also reserves 1 KB
+MAX_STAGES = 16
+MAX_BOX = 256  # TMA: elements per box dimension
+ROWS_PER_TILE = (4, 2, 1)  # the pixel-row counts the plan tries, most first
+TILES_PER_WARP = 4  # fewer rows per tile until every consumer warp has this many tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the kernel covers [N, S, H·dh]: tiles of ``rows`` pixel rows by one
+    head (each a TMA box of [panel, 1, sp, rows] per dh panel), a ring of
+    ``stages`` stages, ``grid`` persistent blocks that walk the ``tiles``
+    tiles, heads fastest (tile t: rows (t // heads)·rows, head t % heads),
+    ``smem_bytes`` of shared memory each."""
+
+    sp: int
+    dh: int
+    heads: int
+    rows: int
+    stages: int
+    blocks_per_sm: int
+    grid: int
+    tiles: int
+    smem_bytes: int
+
+    @property
+    def panel(self) -> int:
+        """dh elements per box row: 128 bytes (128-byte swizzle), or 64 bytes
+        (64-byte swizzle) at dh 32."""
+        return min(self.dh, 64)
+
+    @property
+    def box(self) -> tuple:
+        """The TMA box, innermost first: [panel, 1 head, sp frames, rows]."""
+        return (self.panel, 1, self.sp, self.rows)
+
+    @property
+    def tile_bytes(self) -> int:
+        return self.rows * self.sp * self.dh * 2
+
+    def bands(self, t: int) -> list:
+        """The (pixel row, head) bands of tile ``t`` before the tensor's
+        edge clips it, as the kernel decodes it."""
+        n0 = (t // self.heads) * self.rows
+        return [(n0 + r, t % self.heads) for r in range(self.rows)]
+
+
+def smem_bytes(sp: int, dh: int, rows: int, stages: int) -> int:
+    """Shared memory of one block, as the kernel lays it out: ``stages``
+    stages of q, k and v tiles, two output tiles per consumer warp, two
+    mbarriers per stage, 1024 bytes to align the swizzled tiles."""
+    tile = rows * sp * dh * 2
+    return (3 * stages + 2 * CONSUMER_WARPS) * tile + 16 * stages + 1024
+
+
+def _stages_for(sp, dh, rows, blocks_per_sm):
+    """The most stages (a multiple of the consumer warps, at most
+    MAX_STAGES) whose blocks fit ``blocks_per_sm`` to an SM; 0 if none."""
+    budget = min(MAX_SMEM_PER_BLOCK, SMEM_PER_SM // blocks_per_sm - 1024)
+    for stages in range(MAX_STAGES, 0, -CONSUMER_WARPS):
+        if smem_bytes(sp, dh, rows, stages) <= budget:
+            return stages
+    return 0
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(n: int, s: int, heads: int, dh: int, sms: int) -> TilePlan:
+    """The kernel's plan for q/k/v [n, s, heads·dh] on a card of ``sms`` SMs.
+
+    One head per tile: a box of several heads puts a band's frames that many
+    128-byte lines apart, and an even count makes ldmatrix's eight rows
+    share banks. Two blocks per SM wherever a tile leaves each of them a
+    stage per consumer warp, else one: eight consumer warps on an SM beat
+    one block's deeper ring. Then the most pixel rows per tile (4, 2, 1)
+    that still give every consumer warp of the grid TILES_PER_WARP tiles,
+    so that the persistent blocks end together, else the fewest (on an
+    H100: two rows at the video shapes, one at the smallest)."""
+    if s < 1 or s > MAX_S or dh not in HEAD_DIMS or n < 1 or heads < 1 or sms < 1:
+        raise ValueError(f"no short-attention plan for n={n} s={s} heads={heads} dh={dh}")
+    sp = 16 if s <= 16 else 32
+    for bps in (2, 1):
+        fits = [(r, _stages_for(sp, dh, r, bps)) for r in ROWS_PER_TILE]
+        fits = [(r, stages) for r, stages in fits if stages >= CONSUMER_WARPS]
+        if fits:
+            break
+    else:
+        raise ValueError(f"no short-attention tile fits at s={s} dh={dh}")
+    enough = TILES_PER_WARP * CONSUMER_WARPS * bps * sms
+    rows, stages = next(((r, st) for r, st in fits if -(-n // r) * heads >= enough), fits[-1])
+    tiles = -(-n // rows) * heads
+    return TilePlan(sp=sp, dh=dh, heads=heads, rows=rows, stages=stages, blocks_per_sm=bps,
+                    grid=min(tiles, bps * sms), tiles=tiles,
+                    smem_bytes=smem_bytes(sp, dh, rows, stages))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def short_seq_attention_reference(q, k, v, num_heads: int, scale: float | None = None):
@@ -60,7 +163,7 @@ def bind(lib):
     fn = lib.tm_short_attention_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3)
     return fn
 
 
@@ -71,7 +174,10 @@ def _launcher():
     return lib, bind(lib)
 
 
-def _launch_cuda(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+def _launch_cuda(q, k, v, num_heads: int, scale: float,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's launch at ``tile_plan``'s plan, into a new tensor (or
+    into ``out``: contiguous bf16 [N, S, H·dh], 16-byte aligned)."""
     n, s, d = q.shape
     dh = d // num_heads
     if dh not in HEAD_DIMS:
@@ -86,12 +192,18 @@ def _launch_cuda(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
                              f"row strides in multiples of 8 and a 16-byte aligned start; "
                              f"got strides {t.stride()}")
     lib, fn = _launcher()
-    out = torch.empty((n, s, d), dtype=torch.bfloat16, device=q.device)
+    plan = tile_plan(n, s, num_heads, dh, _sm_count(q.device.index or 0))
+    if out is None:
+        out = torch.empty((n, s, d), dtype=torch.bfloat16, device=q.device)
+    elif (out.shape != q.shape or out.dtype != torch.bfloat16 or out.device != q.device
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError("out must be a contiguous, 16-byte aligned bf16 tensor of q's shape")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                 n, s, num_heads, dh, scale * math.log2(math.e), stream)
+                 n, s, num_heads, dh, scale * math.log2(math.e), stream,
+                 plan.rows, plan.stages, plan.grid)
     check_launch(lib, err, "short_attention")
     short_seq_attention.launches += 1
     return out

@@ -11,7 +11,14 @@
   where CUDA is in use, so it times the card's work;
 * ``device_breakdown``: device time by kernel class of a finished profile
   (``profiler_kernels``) or of a Chrome trace file
-  (``chrome_trace_kernels``), its top kernels and the device's idle share.
+  (``chrome_trace_kernels``), its top kernels and the device's idle share;
+* ``graph_ms``, ``flushed_ms``: device ms per call of a function, warm or
+  with the L2 flushed, from CUDA graphs timed with CUDA events (the host's
+  enqueue rate cannot show); ``host_us_per_call``: the host's µs to
+  enqueue one call.
+
+This module imports nothing of the package, so that a script can load it by
+its path beside another tree's package (``tools/short_timing.py``).
 """
 
 from __future__ import annotations
@@ -73,6 +80,86 @@ class PhaseTimer:
     def dump(self, path: str):
         with open(path, "w") as f:
             json.dump(self.report(), f, indent=2)
+
+
+# -- device and host time per call -------------------------------------------
+
+FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+
+
+def _replay_ms(graph, reps: int = 5) -> float:
+    """Median device ms of one replay of ``graph``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def _capture(body, launches: int):
+    """``launches`` calls of ``body`` captured in one CUDA graph (after a
+    warm-up call on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            body()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, launches: int = 50) -> float:
+    """Device ms per call of ``fn``: ``launches`` calls in one CUDA graph,
+    the replay timed with CUDA events (median of 5)."""
+    fn()
+    return _replay_ms(_capture(fn, launches)) / launches
+
+
+def flushed_ms(fn, launches: int = 20) -> float:
+    """Device ms per call of ``fn`` with the L2 cold: a graph of (a read of
+    FLUSH_BYTES, ``fn``) ``launches`` times, less a graph of the reads
+    alone."""
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    sink = torch.empty((), device="cuda")
+
+    def flush():
+        torch.sum(buf, dim=0, out=sink)
+
+    def both():
+        flush()
+        fn()
+
+    fn()
+    t_both = _replay_ms(_capture(both, launches))
+    t_flush = _replay_ms(_capture(flush, launches))
+    return (t_both - t_flush) / launches
+
+
+def host_us_per_call(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host microseconds to enqueue one call, timed while the device is kept
+    busy (so the launch queue neither drains nor fills); the median of
+    ``repeats`` runs of ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda._sleep(500_000_000)  # ~0.3 s of device time
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(runs)[repeats // 2]
 
 
 # -- device time by kernel class -------------------------------------------------

@@ -1233,7 +1233,9 @@ def phase_cli_profile(root, argv) -> dict:
     is hundreds of MB):
     ``phase_timings.json`` holds ``sample_1_seeds``, the Chrome trace holds
     one flash-kernel event per expected launch, and the profiling module's
-    classifier puts them under flash_attention."""
+    classifier puts them under flash_attention. ``spans.json`` holds one
+    ``request`` span and a ``unet`` span per sampler step, on the trace's
+    clock (``span_kernel_leads``)."""
     import torch
 
     from tweediemix_tpu_torch.cli import fusion_sampling
@@ -1241,6 +1243,7 @@ def phase_cli_profile(root, argv) -> dict:
     from tweediemix_tpu_torch.models.unet2d import UNetConfig
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention
     from tweediemix_tpu_torch.utils.profiling import (
+        SPANS_FILE,
         TRACE_FILE,
         chrome_trace_kernels,
         device_breakdown,
@@ -1265,19 +1268,77 @@ def phase_cli_profile(root, argv) -> dict:
     if "sample_1_seeds" not in phases or not os.path.exists(trace_path):
         fail(f"--profile wrote {sorted(os.listdir(prof_dir))}, phases {phases}")
     kernels = chrome_trace_kernels(trace_path)
-    named = sum("flash_fwd_kernel" in n for n, _ in kernels)
+    named = sum("flash_fwd_kernel" in n for n, *_ in kernels)
     breakdown = device_breakdown(kernels, phases["sample_1_seeds"] * 1e3)
     classified = breakdown["by_class_count"].get("flash_attention", 0)
+    with open(os.path.join(prof_dir, SPANS_FILE)) as f:
+        kept = json.load(f)
+    clock = span_kernel_leads(trace_path, kept)
+    names = [s["name"] for s in kept["spans"]]
     stats = dict(gpu=gpu_name_and_power(), cli_wall_s=wall, phases=phases,
                  timings=json.loads(text.split("timings: ", 1)[1].splitlines()[0]),
                  trace_bytes=os.path.getsize(trace_path), kernel_events=len(kernels),
                  expected_launches=expected, launches=launches, trace_flash_events=named,
-                 trace_flash_classified=classified, breakdown=breakdown)
+                 trace_flash_classified=classified, breakdown=breakdown,
+                 spans=len(names), unet_spans=names.count("unet"),
+                 step_spans=names.count("fusion.step"), syncs_per_step=[
+                     s["syncs"] for s in kept["spans"] if s["name"] == "fusion.step"],
+                 clock=clock)
     log(f"cli profile: {json.dumps(stats)}")
     if named != expected or classified != expected:
         fail(f"the trace holds {named} flash-kernel events, {classified} classified as "
              f"flash_attention; expected {expected}")
+    if names.count("request") != 1 or not names.count("unet") or (
+            names.count("unet") != names.count("fusion.step")):
+        fail(f"spans.json holds {names.count('request')} request spans, "
+             f"{names.count('unet')} unet spans and {names.count('fusion.step')} steps")
+    # the spans share the trace's host clock: each opens before its range and
+    # closes after it, and holds the launches the range holds, no more; and
+    # its kernels start no earlier than its start, but for the skew between
+    # the profiler's device and host timelines measured in the same trace
+    if (clock["spans"] != clock["ranges"] or not clock["kernels"]
+            or clock["kernels"] != clock["kernels_in_ranges"]
+            or clock["range_offset"][0] < 0 or clock["end_offset"] < 0
+            or clock["kernel_lead"] < min(0.0, clock["kernel_after_launch"])):
+        fail(f"the unet spans and their ranges in the trace disagree: {clock}")
     return stats
+
+
+def span_kernel_leads(trace_path: str, kept: dict) -> dict:
+    """How the ``unet`` spans of ``kept`` (a ``spans.json``) lie on the
+    Chrome trace's clock, in µs: each span's start and end against its own
+    range in the trace (``range_offset``: the range opens this much later;
+    ``end_offset``: it closes this much earlier), the kernels launched while
+    the spans were open (found through their launches' correlation ids)
+    against those launched inside the ranges, and those kernels' device
+    start against the span's start (``kernel_lead``, the least) and against
+    their own launch (``kernel_after_launch``, the least: the profiler's
+    own skew between its device and host timelines where negative)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    base = kept["baseTimeNanoseconds"]
+    start = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+    launches = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                      if e.get("cat") == "cuda_runtime" and "Launch" in e["name"]
+                      and e.get("args", {}).get("correlation") in start)
+    ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("name") == "unet" and e.get("cat") == "user_annotation")
+    unets = [s for s in kept["spans"] if s["name"] == "unet"]
+    opened, closed, leads, after, in_ranges = [], [], [], [], 0
+    for (r0, r1), s in zip(ranges, unets):
+        lo, hi = (s["start_ns"] - base) / 1e3, (s["end_ns"] - base) / 1e3
+        opened.append(r0 - lo)
+        closed.append(hi - r1)
+        inside = [(t, c) for t, c in launches if lo <= t <= hi]
+        in_ranges += sum(r0 <= t <= r1 for t, _ in launches)
+        leads += [start[c] - lo for _, c in inside]
+        after += [start[c] - t for t, c in inside]
+    return dict(spans=len(unets), ranges=len(ranges),
+                range_offset=[min(opened, default=None), max(opened, default=None)],
+                end_offset=min(closed, default=None), kernels=len(leads),
+                kernels_in_ranges=in_ranges, kernel_lead=min(leads, default=None),
+                kernel_after_launch=min(after, default=None))
 
 
 # openai/clip-vit-large-patch14: the text tower (SDXL's text_encoder) and a

@@ -1,5 +1,6 @@
-"""The port's auxiliary entry points on the CPU: phase timing and the fusion
-CLI's ``--profile`` (``utils/profiling.py``), the mask overlay and LabelMe
+"""The port's auxiliary entry points on the CPU: the program's spans, phase
+timing and the fusion CLI's ``--profile`` (``utils/profiling.py``), the
+kernel classifier, the mask overlay and LabelMe
 export (``segmentation/viz.py``) and the demo (``cli/app.py``), and the
 W8A8 calibration tool (``tools/calibrate_quant.py``), against the JAX
 package where it has a counterpart.
@@ -12,6 +13,8 @@ LabelMe dicts exact (integer pixel coordinates, against the JAX package's
 import json
 import os
 import sys
+import time
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +25,10 @@ import torch
 from tweediemix_tpu.models import unet2d as jax_unet2d
 from tweediemix_tpu.segmentation import viz as jax_viz
 from tweediemix_tpu_torch.cli import app, fusion_sampling
+from tweediemix_tpu_torch.fusion import sampler as port_sampler
+from tweediemix_tpu_torch.fusion.pipeline import TweedieMixPipeline
 from tweediemix_tpu_torch.models import unet2d as port_unet2d
+from tweediemix_tpu_torch.models import vae as port_vae
 from tweediemix_tpu_torch.models.convert import load_params
 from tweediemix_tpu_torch.ops import quant as port_quant
 from tweediemix_tpu_torch.segmentation import viz as port_viz
@@ -39,19 +45,149 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # -- profiling ------------------------------------------------------------------------
 
 
-def test_phase_timer(tmp_path):
-    t = profiling.PhaseTimer()
-    with t.phase("a"):
-        pass
-    with t.phase("a"):
-        pass
-    with t.phase("b"):
-        pass
-    rep = t.report()
-    assert set(rep) == {"a", "b"} and rep["a"] >= 0
-    p = tmp_path / "phases.json"
-    t.dump(str(p))
-    assert set(json.loads(p.read_text())) == {"a", "b"}
+def _tiny_fusion(quant=None):
+    n = 3
+    fcfg = port_sampler.FusionConfig(n_timesteps=4, t_cond=0.5, resampling_steps=1,
+                                     jumping_steps=1, height=64, width=64, num_concepts=n)
+    torch.manual_seed(0)
+    pipe = TweedieMixPipeline.from_random_weights(
+        port_unet2d.UNetConfig.tiny(concept_slots=n + 1, quant=quant), port_vae.VAEConfig.tiny(),
+        fcfg, device="cpu")
+
+    def rows(m):
+        return 0.2 * torch.randn(m, 6, 32), 0.2 * torch.randn(m, 32)
+
+    embeds = port_sampler.TextEmbeds(*rows(2), *rows(n - 1), *rows(n + 1))
+    fg = torch.zeros(n - 1, 64, 64)
+    fg[0, :, :29] = 1.0
+    fg[1, :, 29:] = 1.0
+    return pipe, embeds, fg
+
+
+def _cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+@pytest.fixture
+def tracer():
+    profiling.TRACER.clear()
+    yield profiling.TRACER
+    profiling.TRACER.clear()
+
+
+def test_phase_timer(tracer):
+    """``phase`` times each block into its dict on the host clock; a span
+    of the phase's name only while the profiler records."""
+    secs = {}
+    with profiling.phase(secs, "a", torch.device("cpu")):
+        time.sleep(0.002)
+    assert set(secs) == {"a"} and secs["a"] >= 0.002 and not tracer.spans
+    with _cpu_profile():
+        with profiling.phase(secs, "b", torch.device("cpu")):
+            pass
+    assert set(secs) == {"a", "b"}
+    assert [s["name"] for s in profiling.spans()] == ["b"]
+
+
+def test_no_profiler_no_span_no_range_and_todays_phase_keys(tracer, monkeypatch):
+    """Without a profiler a span is the shared no-op object: a whole W8A8
+    sample opens no record_function and reads no span clock."""
+    pipe, embeds, fg = _tiny_fusion(quant="int8")
+
+    def forbidden(*a, **k):
+        raise AssertionError("opened while no profiler runs")
+
+    monkeypatch.setattr(torch.profiler, "record_function", forbidden)
+    monkeypatch.setattr(profiling.time, "time_ns", forbidden)
+    assert profiling.span("unet", rows=2) is profiling.span("w8a8.site")
+    pipe.sample(embeds, fg_masks=fg)
+    assert not tracer.spans and tracer.dropped == 0
+    assert set(pipe.phase_seconds) == {"prologue", "joint", "jumping", "fused", "decode"}
+    assert all(v >= 0 for v in pipe.phase_seconds.values())
+
+
+def test_spans_nest_request_phase_step_unet_block_site(tracer):
+    pipe, embeds, fg = _tiny_fusion(quant="int8")
+    with _cpu_profile():
+        pipe.sample(embeds, fg_masks=fg, seed=3)
+    spans = profiling.spans()
+    by_id = {s["id"]: s for s in spans}
+    names = [s["name"] for s in spans]
+    assert names[0] == "request" and spans[0]["attrs"] == {"seed": 3, "rows": 1}
+    assert {s["request"] for s in spans} == {spans[0]["id"]}
+    phases = [s["name"] for s in spans if s["parent"] == spans[0]["id"]]
+    assert phases == ["prologue", "joint", "jumping", "fused", "decode"]
+    steps = [s for s in spans if s["name"] == "fusion.step"]
+    unets = [s for s in spans if s["name"] == "unet"]
+    # prologue, one resampling call and the prologue again; 1 joint, 1 jumping, 2 fused
+    assert [s["attrs"]["phase"] for s in steps] == [
+        "prologue", "resampling", "prologue", "joint", "jumping", "fused", "fused"]
+    assert [s["attrs"]["rows"] for s in steps] == [4, 2, 4, 2, 2, 4, 4]
+    assert [by_id[u["parent"]]["name"] for u in unets] == ["fusion.step"] * len(steps)
+    assert [u["attrs"]["rows"] for u in unets] == [s["attrs"]["rows"] for s in steps]
+    for u in unets:
+        kids = [s["name"] for s in spans if s["parent"] == u["id"]]
+        assert kids == ["unet.embed", "unet.down.0", "unet.down.1", "unet.mid", "unet.up.0",
+                        "unet.up.1"]
+    sites = [s for s in spans if s["name"] == "w8a8.site"]
+    assert sites and len(sites) % len(unets) == 0
+    assert all(by_id[s["parent"]]["name"].startswith("unet.") for s in sites)
+    assert {s["attrs"]["scale"] for s in sites} == {"dynamic"}
+    assert all(s["attrs"]["m"] > 0 and s["attrs"]["k"] > 0 and s["attrs"]["n"] > 0 for s in sites)
+    for s in spans:  # each inside its parent
+        assert s["start_ns"] <= s["end_ns"]
+        if s["parent"] is not None:
+            p = by_id[s["parent"]]
+            assert p["start_ns"] <= s["start_ns"] and s["end_ns"] <= p["end_ns"]
+    assert all(s["syncs"] == 0 for s in spans)  # no card: no synchronising CUDA operation
+
+
+def test_each_span_is_a_profiler_range_on_the_profilers_clock(tracer):
+    pipe, embeds, fg = _tiny_fusion()
+    with _cpu_profile() as prof:
+        pipe.sample(embeds, fg_masks=fg)
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        ranges.setdefault(e.name(), []).append(e.start_ns())
+    seen = {}
+    for s in profiling.spans():
+        i = seen[s["name"]] = seen.get(s["name"], -1) + 1
+        starts = sorted(ranges[s["name"]])
+        assert len(starts) == sum(t["name"] == s["name"] for t in profiling.spans())
+        assert abs(starts[i] - s["start_ns"]) < 1_000_000, s["name"]
+        assert "::" not in s["name"] and not s["name"].startswith("cuda")
+
+
+def test_the_cap_drops_the_oldest_spans_and_counts_them(monkeypatch):
+    cut = profiling.Tracer(cap=3)
+    monkeypatch.setattr(profiling, "TRACER", cut)
+    with _cpu_profile():
+        for i in range(5):
+            with profiling.span("s", i=i):
+                pass
+    assert [s["attrs"]["i"] for s in profiling.spans()] == [2, 3, 4]
+    assert cut.dropped == 2
+
+
+def test_sync_count_goes_into_every_open_span_and_the_filters_come_back(tracer):
+    filters, show = list(warnings.filters), warnings.showwarning
+    other = []
+    warnings.showwarning = lambda *a, **k: other.append(str(a[0]))
+    try:
+        with _cpu_profile():
+            with profiling.span("outer"):
+                assert warnings.showwarning == tracer.on_warning
+                warnings.warn(profiling.SYNC_WARNING + " (a stand-in)")
+                with profiling.span("inner"):
+                    for _ in range(2):  # the same line twice: counted each time
+                        warnings.warn(profiling.SYNC_WARNING + " (a stand-in)")
+                    warnings.warn("something else")
+            inner_show = warnings.showwarning
+    finally:
+        shown, warnings.showwarning = warnings.showwarning, show
+    assert inner_show is shown and other == ["something else"]
+    assert warnings.filters == filters
+    assert {s["name"]: s["syncs"] for s in profiling.spans()} == {"outer": 3, "inner": 2}
 
 
 def test_cli_profile_writes_phase_timings_and_a_trace(tmp_path, capsys):
@@ -68,11 +204,20 @@ def test_cli_profile_writes_phase_timings_and_a_trace(tmp_path, capsys):
     timings = json.loads((prof / "phase_timings.json").read_text())
     assert set(timings) == {"sample_2_seeds"} and timings["sample_2_seeds"] > 0
     with open(prof / profiling.TRACE_FILE) as f:
-        events = json.load(f)["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert "sample_2_seeds" in names  # the phase's record_function range
+        chrome = json.load(f)
+    names = {e.get("name") for e in chrome["traceEvents"]}
+    assert {"request", "fused", "fusion.step", "unet", "unet.mid"} <= names  # the spans' ranges
     assert any(str(n).startswith("aten::") for n in names)
     assert profiling.chrome_trace_kernels(str(prof / profiling.TRACE_FILE)) == []  # no card
+    kept = json.loads((prof / profiling.SPANS_FILE).read_text())
+    assert kept["baseTimeNanoseconds"] == chrome["baseTimeNanoseconds"] and kept["dropped"] == 0
+    request = [s for s in kept["spans"] if s["name"] == "request"]
+    assert len(request) == 1 and request[0]["attrs"] == {"seed": 182, "rows": 2}
+    assert timings["sample_2_seeds"] == pytest.approx(
+        (request[0]["end_ns"] - request[0]["start_ns"]) * 1e-9)
+    # the request span lines up with its range in the trace (ts: µs after the base)
+    ts = next(e["ts"] for e in chrome["traceEvents"] if e.get("name") == "request")
+    assert abs(ts - (request[0]["start_ns"] - kept["baseTimeNanoseconds"]) / 1e3) < 1000
     assert len(list(out.glob("*.png"))) == 2
     assert "saved" in capsys.readouterr().out
 
@@ -91,15 +236,18 @@ def test_kernel_classes_and_device_breakdown(tmp_path):
     }
     for name, cls in names.items():
         assert profiling.kernel_class(name) == cls, name
-    trace = {"traceEvents": [{"ph": "X", "cat": "kernel", "name": n, "dur": 10.0} for n in names]
-             + [{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 99.0}]}
+    # eight 10 µs kernels, the last two overlapping the two before by half
+    starts = [0.0, 10.0, 20.0, 30.0, 40.0, 50.0, 45.0, 55.0]
+    trace = {"traceEvents": [{"ph": "X", "cat": "kernel", "name": n, "ts": t, "dur": 10.0}
+                             for n, t in zip(names, starts)]
+             + [{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0.0, "dur": 99.0}]}
     path = tmp_path / "trace.json"
     path.write_text(json.dumps(trace))
     kernels = profiling.chrome_trace_kernels(str(path))
     assert len(kernels) == len(names)
-    out = profiling.device_breakdown(kernels, wall_ms=0.16)
+    out = profiling.device_breakdown(kernels, wall_ms=0.13)
     assert out["by_class_count"]["gemm"] == 2 and out["by_class_count"]["flash_attention"] == 1
-    assert out["device_busy_ms"] == pytest.approx(0.08)
+    assert out["device_busy_ms"] == pytest.approx(0.065)  # the union of the intervals: 0-65 µs
     assert out["device_idle_share"] == pytest.approx(0.5)
     assert out["by_class_ms"]["gemm"] == pytest.approx(0.02)
 

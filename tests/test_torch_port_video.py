@@ -36,6 +36,7 @@ from tweediemix_tpu_torch.models.convert import convert_params, load_params, tor
 from tweediemix_tpu_torch.ops import attention as port_attention
 from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
 from tweediemix_tpu_torch.schedulers import ddim as port_ddim
+from tweediemix_tpu_torch.utils import profiling
 from tweediemix_tpu_torch.video import pipeline as port_video
 
 # each xdist worker takes its share of the host's cores (a serial run keeps them all)
@@ -453,6 +454,36 @@ def test_generate_matches_jax_with_its_noise(video_case, monkeypatch):
     assert got.shape == want.shape == (F, 16, 16, 3)
     np.testing.assert_allclose(got.numpy(), want, atol=MODEL_TOL, rtol=MODEL_TOL)
     assert set(ppipe.phase_seconds) == {"precompute", "loop", "decode"}
+
+
+def test_generate_spans_nest_request_phase_step_unet_block(video_case):
+    """Under the profiler a clip is one request span over its three phases;
+    each loop step holds one UNet call with its blocks; the step-invariant
+    pass is no call."""
+    _, ppipe = video_case
+    ctx, uctx, img, emb = _jax_rows(np.random.default_rng(17))
+    profiling.TRACER.clear()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            ppipe.generate(_t(ctx), _t(uctx), _t(img), _t(emb), seed=5)
+        spans = profiling.spans()
+    finally:
+        profiling.TRACER.clear()
+    root = spans[0]
+    assert root["name"] == "request" and root["attrs"] == {"seed": 5, "rows": 1}
+    assert [s["name"] for s in spans if s["parent"] == root["id"]] == ["precompute", "loop",
+                                                                        "decode"]
+    loop = next(s for s in spans if s["name"] == "loop")
+    steps = [s for s in spans if s["parent"] == loop["id"]]
+    assert [(s["name"], s["attrs"]["step"], s["attrs"]["rows"], s["attrs"]["inject"])
+            for s in steps] == [("video.step", 0, 2, True), ("video.step", 1, 2, False),
+                                ("video.step", 2, 2, False)]
+    unets = [s for s in spans if s["name"] == "unet"]
+    assert [u["parent"] for u in unets] == [s["id"] for s in steps]
+    for u in unets:
+        assert [s["name"] for s in spans if s["parent"] == u["id"]] == [
+            "unet.embed", "unet.down.0", "unet.down.1", "unet.mid", "unet.up.0", "unet.up.1"]
+    assert {s["request"] for s in spans} == {root["id"]}
 
 
 def test_seeded_noise_is_independent_of_the_clip_count(video_case):

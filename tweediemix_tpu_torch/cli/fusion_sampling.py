@@ -26,8 +26,10 @@ reference's GroundingDINO Swin-B from its ``.pth`` or an HF directory with
 It runs on the card; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU. ``--device`` and ``--seg_gpu`` are accepted for the reference's
 scripts and only warn. ``--profile DIR`` writes a ``torch.profiler``
-Chrome trace of the sample and the PNG writes (``DIR/trace.json``) and
-``DIR/phase_timings.json``. ``--mesh_devices n`` shards every UNet
+Chrome trace of the sample and the PNG writes (``DIR/trace.json``), the
+program's spans recorded meanwhile (``DIR/spans.json``, on the trace's
+clock) and ``DIR/phase_timings.json`` (the ``request`` span's seconds under
+``sample_<N>_seeds``). ``--mesh_devices n`` shards every UNet
 forward's rows over ``cuda:0`` .. ``cuda:n-1`` (on the CPU, the CPU n times;
 ``parallel/mesh.py``). The kernels are built into the compile cache's
 directory (``utils/compile_cache.py``, ``TWEEDIEMIX_COMPILE_CACHE``).
@@ -99,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "single file or a grounding config.json is GroundingDINO)")
     p.add_argument("--profile", type=str, default=None,
                    help="directory for a torch.profiler Chrome trace (trace.json) of the "
-                        "sample and the PNG writes, and phase_timings.json")
+                        "sample and the PNG writes, the program's spans (spans.json) and "
+                        "phase_timings.json")
     p.add_argument("--num_seeds", type=int, default=1,
                    help="sample this many seeds (seed..seed+n-1) in one batch")
     p.add_argument("--mesh_devices", type=int, default=1,
@@ -299,7 +302,7 @@ def main(argv=None, device="cuda") -> int:
     from tweediemix_tpu_torch.device import resolve_device
     from tweediemix_tpu_torch.fusion.pipeline import save_image, stack_text_embeds
     from tweediemix_tpu_torch.utils.compile_cache import enable_compile_cache
-    from tweediemix_tpu_torch.utils.profiling import PhaseTimer, trace
+    from tweediemix_tpu_torch.utils.profiling import spans, trace
 
     opt = build_parser().parse_args(argv)
     device = resolve_device(device)  # before anything is written
@@ -349,13 +352,11 @@ def main(argv=None, device="cuda") -> int:
     if opt.mask_dir is not None:
         fg_masks = load_fg_masks_from_dir(opt.mask_dir, opt.seg_concepts,
                                           opt.resolution_h, opt.resolution_w)
-    timer = PhaseTimer()
     t_masks = time.perf_counter()
     with trace(opt.profile) if opt.profile else contextlib.nullcontext():
         profiler_start_s = time.perf_counter() - t_masks  # not the sample's
-        with timer.phase(f"sample_{opt.num_seeds}_seeds"):
-            imgs = pipe.sample(embeds, seed=opt.seed, fg_masks=fg_masks, num_seeds=opt.num_seeds,
-                               mesh_devices=opt.mesh_devices)
+        imgs = pipe.sample(embeds, seed=opt.seed, fg_masks=fg_masks, num_seeds=opt.num_seeds,
+                           mesh_devices=opt.mesh_devices)
         t2 = sync()
         orig_names = [o.strip() for o in opt.prompt_orig.split("||")]
         for i in range(imgs.shape[0]):
@@ -364,7 +365,10 @@ def main(argv=None, device="cuda") -> int:
             save_image(imgs[i : i + 1], path)
             print(f"saved {path}")
     if opt.profile:
-        timer.dump(os.path.join(opt.profile, "phase_timings.json"))
+        request = next(s for s in spans() if s["name"] == "request")
+        with open(os.path.join(opt.profile, "phase_timings.json"), "w") as f:
+            json.dump({f"sample_{opt.num_seeds}_seeds":
+                       (request["end_ns"] - request["start_ns"]) * 1e-9}, f, indent=2)
     timings.update(encode_s=t1 - t0, sample_s=t2 - t1 - profiler_start_s, phases=pipe.phase_seconds)
     seg = pipe.sampler.segment_fn
     if fg_masks is None and hasattr(seg, "no_detections"):

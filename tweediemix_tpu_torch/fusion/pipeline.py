@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 import warnings
 from typing import List, Optional, Sequence
 
@@ -63,6 +62,7 @@ from tweediemix_tpu_torch.models.vae import (
 from tweediemix_tpu_torch.parallel.mesh import as_mesh, replicate, seed_sharded_unet_fn
 from tweediemix_tpu_torch.schedulers.ddim import DDIMTable
 from tweediemix_tpu_torch.utils.image import write_png
+from tweediemix_tpu_torch.utils.profiling import phase, span
 
 
 def stack_text_embeds(embeds_list: Sequence[TextEmbeds]) -> TextEmbeds:
@@ -292,12 +292,14 @@ class TweedieMixPipeline:
         [S, H, W, 3] in [0, 1]. ``mesh_devices`` > 1 (or a ``Mesh``) shards
         every forward's rows over that many devices (``sampler_for``)."""
         self.sampler = self.sampler_for(mesh_devices)
-        x = self.sampler.run(embeds, seed, fg_masks=fg_masks, num_seeds=num_seeds, x_init=x_init)
-        t0 = time.perf_counter()
-        imgs = torch.cat([self.decode_final(x[s : s + 1]) for s in range(x.shape[0])], dim=0)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.phase_seconds = dict(self.sampler.phase_seconds, decode=time.perf_counter() - t0)
+        with span("request", seed=seed, rows=num_seeds):
+            x = self.sampler.run(embeds, seed, fg_masks=fg_masks, num_seeds=num_seeds,
+                                 x_init=x_init)
+            secs = dict(self.sampler.phase_seconds)
+            with phase(secs, "decode", self.device):
+                imgs = torch.cat([self.decode_final(x[s : s + 1]) for s in range(x.shape[0])],
+                                 dim=0)
+        self.phase_seconds = secs
         self.last_latent = x
         return imgs
 

@@ -20,7 +20,6 @@ cache once, outside its loop.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -29,6 +28,7 @@ import torch
 from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.fusion.masks import build_region_masks
 from tweediemix_tpu_torch.schedulers.ddim import DDIMTable, cfg as cfg_combine
+from tweediemix_tpu_torch.utils.profiling import phase, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +103,12 @@ UNetFn = Callable[..., torch.Tensor]
 def row_seed(seed: int, row: int) -> int:
     """Generator seed of seed-row ``row``: independent of the batch size."""
     return int(np.random.SeedSequence([seed, row]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def step_span(phase_name: str, step: int, t: int, rows: int):
+    """The span of one sampler iteration: its UNet call and the update
+    around it."""
+    return span("fusion.step", phase=phase_name, step=step, t=t, rows=rows)
 
 
 class FusionSampler:
@@ -181,19 +187,22 @@ class FusionSampler:
             kv_pro = self.kv_builder(pctx, pidx)
             kv_joint = self._joint_kv(embeds, s)
 
-        eps = self._prologue_eps(embeds, x, t, kv=kv_pro)
-        for _ in range(cfg.resampling_steps):
-            eps_u = eps[:s]
-            eps_m = cfg_combine(eps_u, eps[s : 2 * s], g)
-            x0 = (n - 1) * tbl.tweedie(x, eps_m, at)
-            for cc in range(n - 1):
-                eps_s = cfg_combine(eps_u, eps[(2 + cc) * s : (3 + cc) * s], g)
-                x0 = x0 - tbl.tweedie(x, eps_s, at)
-            x_next = tbl.renoise(x0, eps_u, at_next)
-            eu2, ec2 = self._joint_eps(embeds, x_next, t - tbl.skip, kv=kv_joint)
-            x0_next = tbl.tweedie(x_next, cfg_combine(eu2, ec2, g), at_next)
-            x = tbl.renoise(x0_next, eu2, at)  # back up to t with the uncond eps
+        with step_span("prologue", 0, t, (n + 1) * s):
             eps = self._prologue_eps(embeds, x, t, kv=kv_pro)
+        for _ in range(cfg.resampling_steps):
+            with step_span("resampling", 0, t - tbl.skip, 2 * s):
+                eps_u = eps[:s]
+                eps_m = cfg_combine(eps_u, eps[s : 2 * s], g)
+                x0 = (n - 1) * tbl.tweedie(x, eps_m, at)
+                for cc in range(n - 1):
+                    eps_s = cfg_combine(eps_u, eps[(2 + cc) * s : (3 + cc) * s], g)
+                    x0 = x0 - tbl.tweedie(x, eps_s, at)
+                x_next = tbl.renoise(x0, eps_u, at_next)
+                eu2, ec2 = self._joint_eps(embeds, x_next, t - tbl.skip, kv=kv_joint)
+                x0_next = tbl.tweedie(x_next, cfg_combine(eu2, ec2, g), at_next)
+                x = tbl.renoise(x0_next, eu2, at)  # back up to t with the uncond eps
+            with step_span("prologue", 0, t, (n + 1) * s):
+                eps = self._prologue_eps(embeds, x, t, kv=kv_pro)
 
         eps_u = eps[:s]
         x0 = tbl.tweedie(x, cfg_combine(eps_u, eps[s : 2 * s], g), at)
@@ -210,12 +219,13 @@ class FusionSampler:
         x0 = None
         for i in range(start, stop):
             t = int(tbl.timesteps[i])
-            eps_u, eps_c = self._joint_eps(embeds, x, t, kv=kv)
-            x0 = tbl.tweedie(x, cfg_combine(eps_u, eps_c, cfg.guidance_scale), tbl.alpha(t))
-            if i == cfg.n_timesteps - 1:
-                x = x0
-            else:
-                x = tbl.renoise(x0, eps_u, tbl.alpha(t - tbl.skip))
+            with step_span("joint", i, t, 2 * x.shape[0]):
+                eps_u, eps_c = self._joint_eps(embeds, x, t, kv=kv)
+                x0 = tbl.tweedie(x, cfg_combine(eps_u, eps_c, cfg.guidance_scale), tbl.alpha(t))
+                if i == cfg.n_timesteps - 1:
+                    x = x0
+                else:
+                    x = tbl.renoise(x0, eps_u, tbl.alpha(t - tbl.skip))
         return x, x0
 
     def jumping(self, embeds: TextEmbeds, x):
@@ -227,9 +237,10 @@ class FusionSampler:
         x0 = torch.zeros_like(x)
         for j in range(cfg.jumping_steps):
             tt = t0 - j * cfg.jump_stride
-            eps_u, eps_c = self._joint_eps(embeds, x, tt, kv=kv)
-            x0 = tbl.tweedie(x, cfg_combine(eps_u, eps_c, cfg.guidance_scale), tbl.alpha(tt))
-            x = tbl.renoise(x0, eps_u, tbl.alpha(tt - cfg.jump_stride))
+            with step_span("jumping", j, tt, 2 * x.shape[0]):
+                eps_u, eps_c = self._joint_eps(embeds, x, tt, kv=kv)
+                x0 = tbl.tweedie(x, cfg_combine(eps_u, eps_c, cfg.guidance_scale), tbl.alpha(tt))
+                x = tbl.renoise(x0, eps_u, tbl.alpha(tt - cfg.jump_stride))
         return x0
 
     def fused_scan(self, embeds: TextEmbeds, x, masks, start: int, stop: int):
@@ -250,12 +261,15 @@ class FusionSampler:
         kv = None if self.kv_builder is None else self.kv_builder(ctx_rows, concept_idx)
         for i in range(start, stop):
             t = int(tbl.timesteps[i])
-            eps = self._call_unet(torch.cat([x] * (n + 1), dim=0), t, ctx_rows, pooled_rows,
-                                  concept_idx, kv)
-            eps_u = eps[:s]
-            eps_cc = cfg_combine(eps_u, eps[s:].reshape(n, s, *x.shape[1:]), cfg.guidance_scale)
-            x0 = (m * tbl.tweedie(x[None], eps_cc, tbl.alpha(t))).sum(dim=0)
-            x = x0 if i == cfg.n_timesteps - 1 else tbl.renoise(x0, eps_u, tbl.alpha(t - tbl.skip))
+            with step_span("fused", i, t, (n + 1) * s):
+                eps = self._call_unet(torch.cat([x] * (n + 1), dim=0), t, ctx_rows, pooled_rows,
+                                      concept_idx, kv)
+                eps_u = eps[:s]
+                eps_cc = cfg_combine(eps_u, eps[s:].reshape(n, s, *x.shape[1:]),
+                                     cfg.guidance_scale)
+                x0 = (m * tbl.tweedie(x[None], eps_cc, tbl.alpha(t))).sum(dim=0)
+                x = (x0 if i == cfg.n_timesteps - 1
+                     else tbl.renoise(x0, eps_u, tbl.alpha(t - tbl.skip)))
         return x
 
     # -- end to end ---------------------------------------------------------
@@ -278,32 +292,22 @@ class FusionSampler:
         in-loop segmentation; ``x_init`` overrides the initial latent."""
         cfg = self.config
         device = embeds.joint_ctx.device
-        self.phase_seconds = {}
-        t_mark = time.perf_counter()
-
-        def mark(name):
-            nonlocal t_mark
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            now = time.perf_counter()
-            self.phase_seconds[name] = now - t_mark
-            t_mark = now
-
-        x = self.init_latent(seed, num_seeds, device) if x_init is None else x_init
-        x, x0 = self.prologue(embeds, x)
-        mark("prologue")
-        x, x0_last = self.joint_scan(embeds, x, start=1, stop=cfg.t_cond_idx)
-        if x0_last is None:
-            x0_last = x0
-        mark("joint")
-        preview_x0 = self.jumping(embeds, x) if cfg.jumping_steps > 0 else x0_last
-        mark("jumping")
-        masks = self.compute_masks(preview_x0, fg_masks)
-        x = self.fused_scan(embeds, x, masks, start=cfg.t_cond_idx, stop=cfg.fused_end_idx + 1)
-        if cfg.fused_end_idx + 1 < cfg.n_timesteps:
-            # LoRA t_stop tail: back to joint CFG
-            x, _ = self.joint_scan(embeds, x, start=cfg.fused_end_idx + 1, stop=cfg.n_timesteps)
-        mark("fused")
+        self.phase_seconds = secs = {}
+        with phase(secs, "prologue", device):
+            x = self.init_latent(seed, num_seeds, device) if x_init is None else x_init
+            x, x0 = self.prologue(embeds, x)
+        with phase(secs, "joint", device):
+            x, x0_last = self.joint_scan(embeds, x, start=1, stop=cfg.t_cond_idx)
+            if x0_last is None:
+                x0_last = x0
+        with phase(secs, "jumping", device):
+            preview_x0 = self.jumping(embeds, x) if cfg.jumping_steps > 0 else x0_last
+        with phase(secs, "fused", device):
+            masks = self.compute_masks(preview_x0, fg_masks)
+            x = self.fused_scan(embeds, x, masks, start=cfg.t_cond_idx, stop=cfg.fused_end_idx + 1)
+            if cfg.fused_end_idx + 1 < cfg.n_timesteps:
+                # LoRA t_stop tail: back to joint CFG
+                x, _ = self.joint_scan(embeds, x, start=cfg.fused_end_idx + 1, stop=cfg.n_timesteps)
         return x
 
     def compute_masks(self, preview_x0, fg_masks):
@@ -321,7 +325,8 @@ class FusionSampler:
         per_seed = []
         for si in range(preview_x0.shape[0]):
             preview_img = self.decode_preview_fn(preview_x0[si : si + 1])
-            fg = torch.as_tensor(self.segment_fn(preview_img), device=preview_x0.device)
+            with span("segment", seed_row=si):
+                fg = torch.as_tensor(self.segment_fn(preview_img), device=preview_x0.device)
             if fg.shape[0] != cfg.num_concepts - 1:
                 raise ValueError(f"segment_fn gave {fg.shape[0]} masks for {cfg.num_concepts} concepts")
             per_seed.append(build_region_masks(fg, h, w))

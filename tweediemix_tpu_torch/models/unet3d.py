@@ -54,6 +54,7 @@ from tweediemix_tpu_torch.models.unet2d import (
     quant_site,
 )
 from tweediemix_tpu_torch.ops.quant import QUANT_MODES, QLinear
+from tweediemix_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,12 +445,6 @@ class UNet3DConditionModel(nn.Module):
             return ctx, il
 
         c0 = cfg.block_out_channels[0]
-        timestep = torch.as_tensor(timestep, device=dev).expand(b)
-        fps = torch.as_tensor(fps, dtype=torch.float32, device=dev).expand(b)
-        temb = self.time_embedding(timestep_embedding(timestep, c0).to(dtype))
-        temb = temb + self.fps_embedding(timestep_embedding(fps, c0).to(dtype))
-        temb_f = temb.repeat_interleave(f, dim=0)  # per folded frame
-        ctx_f = ctx.repeat_interleave(f, dim=0) if cross_kv is None else None
 
         def inject(x, copy, interp):
             if not (copy > 0 or interp > 0):
@@ -469,33 +464,45 @@ class UNet3DConditionModel(nn.Module):
                 x = blk.temp_attentions[j](x, f)
             return x
 
-        x = self.conv_in(fold_frames(torch.cat([sample.to(dtype), il], dim=-1)))
-        x = self.transformer_in(x, f)
+        with span("unet", rows=b):
+            with span("unet.embed"):
+                timestep = torch.as_tensor(timestep, device=dev).expand(b)
+                fps = torch.as_tensor(fps, dtype=torch.float32, device=dev).expand(b)
+                temb = self.time_embedding(timestep_embedding(timestep, c0).to(dtype))
+                temb = temb + self.fps_embedding(timestep_embedding(fps, c0).to(dtype))
+                temb_f = temb.repeat_interleave(f, dim=0)  # per folded frame
+                ctx_f = ctx.repeat_interleave(f, dim=0) if cross_kv is None else None
 
-        res_stack = [x]
-        for lvl, blk in enumerate(self.down_blocks):
-            for j in range(len(blk.resnets)):
-                x = level(blk, j, f"down_blocks_{lvl}_attentions_{j}", x)
-                res_stack.append(x)
-            for sampler in blk.downsamplers:
-                x = sampler(x)
-                res_stack.append(x)
+            x = self.conv_in(fold_frames(torch.cat([sample.to(dtype), il], dim=-1)))
+            x = self.transformer_in(x, f)
 
-        # mid, with the hard-copy injection at each resnet's output
-        x = level(self.mid_block, 0, "mid_block_attentions_0", x, copy=inject_copy)
-        x = level(self.mid_block, 1, None, x, copy=inject_copy)
+            res_stack = [x]
+            for lvl, blk in enumerate(self.down_blocks):
+                with span(f"unet.down.{lvl}"):
+                    for j in range(len(blk.resnets)):
+                        x = level(blk, j, f"down_blocks_{lvl}_attentions_{j}", x)
+                        res_stack.append(x)
+                    for sampler in blk.downsamplers:
+                        x = sampler(x)
+                        res_stack.append(x)
 
-        for i, blk in enumerate(self.up_blocks):
-            for j in range(len(blk.resnets)):
-                x = torch.cat([x, res_stack.pop()], dim=1)
-                # the interpolated injection after up_blocks[1].resnets[0]
-                interp = inject_interp if (i, j) == (1, 0) else 0.0
-                x = level(blk, j, f"up_blocks_{i}_attentions_{j}", x, interp=interp)
-            for sampler in blk.upsamplers:
-                x = sampler(x)
+            # mid, with the hard-copy injection at each resnet's output
+            with span("unet.mid"):
+                x = level(self.mid_block, 0, "mid_block_attentions_0", x, copy=inject_copy)
+                x = level(self.mid_block, 1, None, x, copy=inject_copy)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return unfold_frames(x, b).float()
+            for i, blk in enumerate(self.up_blocks):
+                with span(f"unet.up.{i}"):
+                    for j in range(len(blk.resnets)):
+                        x = torch.cat([x, res_stack.pop()], dim=1)
+                        # the interpolated injection after up_blocks[1].resnets[0]
+                        interp = inject_interp if (i, j) == (1, 0) else 0.0
+                        x = level(blk, j, f"up_blocks_{i}_attentions_{j}", x, interp=interp)
+                    for sampler in blk.upsamplers:
+                        x = sampler(x)
+
+            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            return unfold_frames(x, b).float()
 
 
 def video_cross_attention_names(cfg: UNet3DConfig):

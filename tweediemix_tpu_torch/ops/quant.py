@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tweediemix_tpu_torch.utils import profiling
+
 QUANT_MODES = ("int8", "int8_conv")
 
 
@@ -155,6 +157,15 @@ class QLinear(_Int8Weight):
         self.site = ""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a site runs 442 times a call: gate before the span's attributes are computed
+        if not profiling.recording():
+            return self._product(x)
+        n, k = self.weight_q.shape
+        with profiling.span("w8a8.site", scale="static" if self.static_amax > 0 else "dynamic",
+                            m=x.numel() // k, k=k, n=n):
+            return self._product(x)
+
+    def _product(self, x: torch.Tensor) -> torch.Tensor:
         y = w8a8_matmul(x, self.weight_q, self.weight_scale, self.static_amax)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
@@ -173,6 +184,15 @@ class QConv2d(_Int8Weight):
         self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not profiling.recording():
+            return self._product(x)
+        cout, cin, kh, kw = self.weight_q.shape
+        b, _, h, w = x.shape
+        rows = b * ((h + 2 - kh) // self.stride + 1) * ((w + 2 - kw) // self.stride + 1)
+        with profiling.span("w8a8.site", scale="dynamic", m=rows, k=cin * kh * kw, n=cout):
+            return self._product(x)
+
+    def _product(self, x: torch.Tensor) -> torch.Tensor:
         y = w8a8_conv(x, self.weight_q, self.weight_scale, stride=self.stride)
         return y + self.bias.to(y.dtype)[None, :, None, None]
 

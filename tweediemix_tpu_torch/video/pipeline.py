@@ -31,7 +31,6 @@ this process, as in ``fusion.pipeline``.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -61,6 +60,7 @@ from tweediemix_tpu_torch.parallel.mesh import (
 )
 from tweediemix_tpu_torch.schedulers.ddim import cfg as cfg_combine, make_betas, video_rotation_step
 from tweediemix_tpu_torch.utils.image import write_gif
+from tweediemix_tpu_torch.utils.profiling import phase, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,22 +198,22 @@ class I2VPipeline:
         xs = [x for _, x, _, _ in shards]
         for i, t in enumerate(tbl.timesteps):
             inject = i < cfg.injection_steps
-            for k, (unet, _, (ctx2, image_latents2, image_emb2, fps2), cache) in enumerate(shards):
-                cached_ctx, cached_il, cross_kv = cache
-                x = xs[k]
-                b = x.shape[0]
-                with on_device(x.device):
-                    eps = unet(x.repeat_interleave(2, dim=0), int(t), ctx2, image_latents2,
-                               image_emb2, fps2, inject, inject, cfg.interp_ratio,
-                               cached_ctx=cached_ctx, cached_il=cached_il, cross_kv=cross_kv)
-                    er = eps.reshape(b, 2, *eps.shape[1:])
-                    e = cfg_combine(er[:, 0], er[:, 1], cfg.guidance_scale)
-                    xs[k] = video_rotation_step(x, e, tbl.alpha(t), tbl.alpha(int(t) - tbl.skip))
+            with span("video.step", step=i, t=int(t), rows=2 * sum(x.shape[0] for x in xs),
+                      inject=inject):
+                for k, (unet, _, (ctx2, image_latents2, image_emb2, fps2), cache) in enumerate(
+                        shards):
+                    cached_ctx, cached_il, cross_kv = cache
+                    x = xs[k]
+                    b = x.shape[0]
+                    with on_device(x.device):
+                        eps = unet(x.repeat_interleave(2, dim=0), int(t), ctx2, image_latents2,
+                                   image_emb2, fps2, inject, inject, cfg.interp_ratio,
+                                   cached_ctx=cached_ctx, cached_il=cached_il, cross_kv=cross_kv)
+                        er = eps.reshape(b, 2, *eps.shape[1:])
+                        e = cfg_combine(er[:, 0], er[:, 1], cfg.guidance_scale)
+                        xs[k] = video_rotation_step(x, e, tbl.alpha(t),
+                                                    tbl.alpha(int(t) - tbl.skip))
         return xs
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     @torch.inference_mode()
     def generate(self, text_ctx, uncond_ctx, image, image_embedding, seed: int = 0,
@@ -235,7 +235,6 @@ class I2VPipeline:
         mesh = None if mesh_devices == 1 else as_mesh(mesh_devices, dev)
         if mesh is not None and b % mesh.size:
             raise AssertionError(f"clip batch {b} must divide over {mesh.size} devices")
-        t0 = time.perf_counter()
 
         def rows(a):
             a = a.to(dev)
@@ -246,33 +245,31 @@ class I2VPipeline:
                 2 * b, *uncond_rows.shape[1:])
 
         h, w = cfg.latent_hw
-        if posterior_noise is None:
-            posterior_noise = self.posterior_noise(seed, (h, w, 4), b)
-        frame0 = self.encode_first_frame(image, posterior_noise.to(dev))
-        img_lat = self.prepare_image_latents(frame0)
-        img_lat2 = interleave(img_lat, img_lat)
-        ctx2 = interleave(rows(uncond_ctx), rows(text_ctx))
-        emb = rows(image_embedding)
-        img_emb2 = interleave(torch.zeros_like(emb), emb)  # the uncond row's zero embedding
-        fps2 = torch.full((2 * b,), float(cfg.fps), device=dev)
-        x = self.init_latents(seed, b) if x_init is None else x_init.to(dev, torch.float32)
-        if mesh is None:
-            cache = precompute_video_cache(self.unet, ctx2, img_lat2, img_emb2, fps2)
-            self._sync()
-            t1 = time.perf_counter()
-            x = self.loop(x, ctx2, img_lat2, img_emb2, fps2, cache)
-        else:
-            shards = self._shards(mesh, x, (ctx2, img_lat2, img_emb2, fps2))
-            self._sync()
-            t1 = time.perf_counter()
-            x = gather_rows(mesh, self._loop_shards(shards), dev)
-        self._sync()
-        t2 = time.perf_counter()
-
-        out = self.decode_video(x)
-        self._sync()
-        self.phase_seconds = dict(precompute=t1 - t0, loop=t2 - t1,
-                                  decode=time.perf_counter() - t2)
+        secs = {}
+        with span("request", seed=seed, rows=b):
+            with phase(secs, "precompute", dev):
+                if posterior_noise is None:
+                    posterior_noise = self.posterior_noise(seed, (h, w, 4), b)
+                frame0 = self.encode_first_frame(image, posterior_noise.to(dev))
+                img_lat = self.prepare_image_latents(frame0)
+                img_lat2 = interleave(img_lat, img_lat)
+                ctx2 = interleave(rows(uncond_ctx), rows(text_ctx))
+                emb = rows(image_embedding)
+                img_emb2 = interleave(torch.zeros_like(emb), emb)  # the uncond row's zero embedding
+                fps2 = torch.full((2 * b,), float(cfg.fps), device=dev)
+                x = self.init_latents(seed, b) if x_init is None else x_init.to(dev, torch.float32)
+                if mesh is None:
+                    cache = precompute_video_cache(self.unet, ctx2, img_lat2, img_emb2, fps2)
+                else:
+                    shards = self._shards(mesh, x, (ctx2, img_lat2, img_emb2, fps2))
+            with phase(secs, "loop", dev):
+                if mesh is None:
+                    x = self.loop(x, ctx2, img_lat2, img_emb2, fps2, cache)
+                else:
+                    x = gather_rows(mesh, self._loop_shards(shards), dev)
+            with phase(secs, "decode", dev):
+                out = self.decode_video(x)
+        self.phase_seconds = secs
         self.last_latent = x
         return out[0] if b == 1 else out
 

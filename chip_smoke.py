@@ -17,7 +17,10 @@ JAX or of the JAX package. Phases:
    wrapper's host cost per call); the int8 kernel also against exact fp32
    attention, with its exp2 and issue floors, and its two fused quantise
    passes bitwise against their plain versions, timed against their byte
-   bound; the bf16 kernel with a gradient at the training shape
+   bound; the W8A8 linear's two launches (quantise, int8 GEMM with its
+   epilogue) bitwise against their plain version at the 16 SDXL site shapes
+   and the 22 of an I2VGen-XL loop call, static and dynamic, timed on the
+   device alone beside their bound, the plain version and ``torch._int_mm``; the bf16 kernel with a gradient at the training shape
    (``FlashAttention``: the kernel forward, the math backward), dq/dk/dv
    against autograd of the fp32 plain version, with the backward's time,
    bound and SDPA's forward+backward;
@@ -97,7 +100,9 @@ JAX or of the JAX package. Phases:
    999/501/1 at batch 4, margin 1.25) and the int8
    attention core on (``TWEEDIEMIX_FLASH_INT8=1``): one warm and one timed
    call, the int8 kernel's and its quantise passes' launch counts checked
-   and the bf16 kernel's held at 0, then one batch-4 call profiled with the int8 core on and off;
+   and the bf16 kernel's held at 0, the W8A8 linear kernels' at 442 a UNet
+   call, two synchronising operations in a UNet call, then one batch-4 call
+   profiled with the int8 core on and off;
 6. video: the short-sequence (frame-axis) kernel against its plain version
    at the video path's five shapes (as views of a merged qkv and
    contiguous) and its edge cases (each with a sentinel around the
@@ -119,7 +124,9 @@ JAX or of the JAX package. Phases:
    ``tweediemix_tpu_torch.cli.run_video.main`` turns phase 4's PNG into a
    16-frame 512² GIF at the reference's defaults, in bf16 and with
    ``--quant int8`` and the int8 core on: each run's launches of all three
-   kernels are counted and its GIF read back by the port's decoder.
+   attention kernels and of the W8A8 linear (264 a UNet call under
+   ``--quant``, 0 in bf16) are counted and its GIF read back by the port's
+   decoder.
 
 It prints a JSON line of kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -235,7 +242,18 @@ SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 1
                      (257, 7, 5, 32), (3, 16, 2, 64), (2049, 16, 5, 64), (4097, 7, 5, 32),
                      (1699, 17, 5, 32)]
 SHORT_CANARY = 4096  # bf16 elements of a sentinel before and after each case's output
-KERNELS = ("flash_attention", "flash_attention_int8", "short_attention")
+# (M, K, N) of the SDXL W8A8 linear sites at 2 and 4 latent rows (the
+# fusion's batch-2 and batch-4 calls): six a transformer block and
+# proj_in/proj_out, 4096 tokens a row at 640 channels, 1024 at 1280
+W8A8_LINEAR_SHAPES = [(rows * tokens, k, n) for rows in (2, 4)
+                      for tokens, pairs in ((4096, ((640, 1920), (640, 640), (640, 5120),
+                                                    (2560, 640))),
+                                            (1024, ((1280, 3840), (1280, 1280), (1280, 10240),
+                                                    (5120, 1280))))
+                      for k, n in pairs]
+W8A8_SITES = 442  # W8A8 linear sites per SDXL UNet call
+VIDEO_W8A8_SITES = 264  # W8A8 linear sites per I2VGen-XL loop call (video_w8a8_shapes)
+KERNELS = ("flash_attention", "flash_attention_int8", "short_attention", "w8a8_linear")
 
 
 def fail(msg: str) -> None:
@@ -497,6 +515,94 @@ def phase_kernels_int8() -> list:
             fail(f"flash_attention_int8 disagrees with its plain version on loud inputs at "
                  f"{(bh, sq, sk, dh)}: {rel:.3e} > {FLASH_REL_TOL}")
     return results
+
+
+def phase_kernels_w8a8() -> tuple:
+    """The two W8A8 linear launches (``csrc/w8a8_linear.cu``) against the
+    plain version at the 16 SDXL site shapes and the I2VGen-XL loop call's
+    22 (``video_w8a8_shapes``): x_q, the row scales and y bitwise, with a
+    static and a dynamic scale and a bias; timed beside their bound, the
+    plain version (``torch._int_mm`` plus the eager chain, what every site
+    ran before, and so also the library yardstick ``library_ms``) and
+    ``torch._int_mm`` alone on the same int8 operands, and the wrapper's host
+    cost per call. Returns the SDXL rows and the video rows."""
+    import torch
+
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConfig
+    from tweediemix_tpu_torch.ops import quant
+    from tweediemix_tpu_torch.utils.profiling import graph_ms, host_us_per_call
+    from tweediemix_tpu_torch.video.pipeline import VideoConfig
+
+    vcfg = VideoConfig()
+    video_sites = video_w8a8_shapes(UNet3DConfig.i2vgen(), vcfg.latent_hw, vcfg.num_frames)
+    if sum(video_sites.values()) != VIDEO_W8A8_SITES:
+        fail(f"the I2VGen-XL loop call has {sum(video_sites.values())} W8A8 linear sites, "
+             f"expected {VIDEO_W8A8_SITES}")
+    sdxl, video = [], []
+    for (m, k, n), rows in [(shape, sdxl) for shape in W8A8_LINEAR_SHAPES] + \
+            [(shape, video) for shape in sorted(video_sites)]:
+        gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        wq, ws = quant.quantize_weight_int8(torch.randn((n, k), generator=gen, device="cuda")
+                                            * k ** -0.5)
+        bias = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+        amax = 0.5 * x.abs().max().item()
+        xq_bytes = quant.w8a8_work_bytes(m, k, False)
+        work = torch.empty(quant.w8a8_work_bytes(m, k, True), dtype=torch.uint8, device="cuda")
+        for static in (amax, 0.0):
+            y = quant.w8a8_matmul_cuda(x, wq, ws, static, bias, work=work)
+            xq = work[: m * k].view(torch.int8).view(m, k)
+            want_q, want_s = quant.quantize_activation_int8(x, static)
+            want = quant.w8a8_matmul_reference(x, wq, ws, static, bias)
+            torch.cuda.synchronize()
+            if not (torch.equal(xq, want_q) and torch.equal(y, want)
+                    and (static or torch.equal(work[xq_bytes:].view(torch.float32),
+                                               want_s[:, 0]))):
+                fail(f"w8a8_linear differs from its plain version at {(m, k, n)} "
+                     f"({'static' if static else 'dynamic'} scale): "
+                     f"{(y != want).sum().item()} outputs differ")
+        err = (y.float() - want.float()).abs().max().item()
+        # device time alone: a CUDA graph of launches (the plain version's static
+        # scale is a host-to-device copy, which no graph takes: CUDA events)
+        ms = graph_ms(lambda: quant.w8a8_matmul_cuda(x, wq, ws, amax, bias), 20)
+        dynamic_ms = graph_ms(lambda: quant.w8a8_matmul_cuda(x, wq, ws, 0.0, bias), 20)
+        stream_ms = cuda_ms(lambda: quant.w8a8_matmul_cuda(x, wq, ws, amax, bias), 20)
+        plain_ms = cuda_ms(lambda: quant.w8a8_matmul_reference(x, wq, ws, amax, bias), 20)
+        wt = wq.t()
+        int_mm_ms = graph_ms(lambda: torch._int_mm(want_q, wt), 20)
+        ops = 2.0 * m * n * k
+        nbytes = 2.0 * m * k + 2.0 * m * n + 1.0 * n * k  # bf16 x and y, the int8 weight
+        t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+        row = dict(shape=[m, k, n], max_abs_err=err, rel_err=0.0, ms=ms, dynamic_ms=dynamic_ms,
+                   stream_ms=stream_ms, plain_ms=plain_ms,
+                   # the plain version is torch._int_mm plus the eager chain: the library yardstick
+                   library_ms=plain_ms, int_mm_ms=int_mm_ms, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", tops=ops / ms / 1e9)
+        row["share_of_bound"] = row["bound_ms"] / ms
+        if rows is video:
+            row["sites_per_call"] = video_sites[(m, k, n)]
+        log(f"w8a8_linear {(m, k, n)}: bitwise equal (static, dynamic); ms {ms:.4f} (dynamic "
+            f"{dynamic_ms:.4f}, back to back {stream_ms:.4f}) plain_ms {plain_ms:.4f} int_mm_ms "
+            f"{int_mm_ms:.4f} bound_ms "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) {row['share_of_bound']:.1%} of bound, "
+            f"{row['tops']:.1f} TOP/s")
+        rows.append(row)
+        del x, wq, ws, bias, y, xq, work, want_q, want_s, want, wt
+        torch.cuda.empty_cache()
+    x = torch.randn((16, 640), device="cuda").to(torch.bfloat16)
+    wq = torch.zeros((640, 640), dtype=torch.int8, device="cuda")
+    ws = torch.ones(640, device="cuda")
+    sdxl[0]["host_us_per_call"] = host_us_per_call(lambda: quant.w8a8_matmul(x, wq, ws, 1.0))
+    log(f"w8a8_linear host cost per call while the device is busy (median of 5 x 200 calls): "
+        f"{sdxl[0]['host_us_per_call']:.2f} us")
+    for label, rows in (("the 16 SDXL shapes", sdxl), ("the 22 video shapes", video)):
+        log(f"w8a8_linear at {label}: {sum(r['ms'] for r in rows):.3f} ms, plain "
+            f"{sum(r['plain_ms'] for r in rows):.3f} ms, bound "
+            f"{sum(r['bound_ms'] for r in rows):.3f} ms")
+    per_call = {k: sum(r[k] * r["sites_per_call"] for r in video) for k in ("ms", "bound_ms")}
+    log(f"w8a8_linear over one I2VGen-XL loop call's {VIDEO_W8A8_SITES} sites: "
+        f"{per_call['ms']:.3f} ms, bound {per_call['bound_ms']:.3f} ms")
+    return sdxl, video
 
 
 def _against_exact(out, q, k, v):
@@ -2236,7 +2342,7 @@ def phase_w8a8_main_path() -> dict:
         flash_attention_int8,
         quantize_qkv_int8_fused,
     )
-    from tweediemix_tpu_torch.ops.quant import load_static_scales, quant_sites
+    from tweediemix_tpu_torch.ops.quant import load_static_scales, quant_sites, w8a8_matmul_cuda
     from tweediemix_tpu_torch.tools.calibrate_quant import calibrate_unet, probe_inputs
 
     n, seeds = 3, 4
@@ -2273,7 +2379,7 @@ def phase_w8a8_main_path() -> dict:
         for run in range(2):  # a warm call, then the timed one
             torch.cuda.reset_peak_memory_stats()
             flash_attention.launches = flash_attention_int8.launches = 0
-            quantize_qkv_int8_fused.launches = 0
+            quantize_qkv_int8_fused.launches = w8a8_matmul_cuda.launches = 0
             t0 = time.perf_counter()
             img = pipe.sample(embeds, seed=run, fg_masks=fg, num_seeds=seeds)
             torch.cuda.synchronize()
@@ -2282,6 +2388,7 @@ def phase_w8a8_main_path() -> dict:
             stats = dict(
                 s_per_call=wall, s_per_image=wall / seeds, int8_launches=launches,
                 quantize_launches=quantize_qkv_int8_fused.launches,
+                w8a8_launches=w8a8_matmul_cuda.launches,
                 bf16_launches=flash_attention.launches,
                 phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
                 max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -2300,14 +2407,49 @@ def phase_w8a8_main_path() -> dict:
                 fail(f"W8A8 main path: int8 kernel launched {launches} times and its quantise "
                      f"{quantize_qkv_int8_fused.launches} (expected {expected} each), bf16 kernel "
                      f"{flash_attention.launches} (expected 0)")
+            if w8a8_matmul_cuda.launches != W8A8_SITES * fcfg.unet_calls():
+                fail(f"W8A8 main path: the W8A8 linear kernels ran {w8a8_matmul_cuda.launches} "
+                     f"times, expected {W8A8_SITES} x {fcfg.unet_calls()} UNet calls")
             runs.append(stats)
         call = (embeds.concept_ctx, embeds.concept_pooled, torch.arange(b, device="cuda"))
+        syncs = count_syncs(pipe, *call)
+        log(f"W8A8 main path: {syncs} synchronising CUDA operations in one UNet call")
+        if syncs != 2:
+            fail(f"W8A8 main path: {syncs} host syncs in one UNet call, expected 2 (time_ids "
+                 f"and the timestep)")
         profile = {"w8a8_batch4_int8_core": profile_call(pipe, "w8a8_batch4_int8_core", *call)}
         os.environ["TWEEDIEMIX_FLASH_INT8"] = "0"
         profile["w8a8_batch4_bf16_core"] = profile_call(pipe, "w8a8_batch4_bf16_core", *call)
     finally:
         os.environ.pop("TWEEDIEMIX_FLASH_INT8", None)
-    return dict(runs=runs, expected_launches=expected, unet_gib=unet_gib, profile=profile)
+    return dict(runs=runs, expected_launches=expected, unet_gib=unet_gib, profile=profile,
+                syncs_per_call=syncs)
+
+
+def count_syncs(pipe, ctx, pooled, idx) -> int:
+    """Synchronising CUDA operations in one fusion UNet call (cross-K/V
+    cache on), as PyTorch's sync debug mode warns of them."""
+    import warnings
+
+    import torch
+
+    from tweediemix_tpu_torch.utils.profiling import SYNC_WARNING
+
+    h, w = pipe.fusion_config.latent_hw
+    x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
+    with torch.inference_mode():
+        kv = pipe._kv_builder(ctx, idx)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
 
 
 def phase_kernels_short() -> list:
@@ -2432,6 +2574,45 @@ def video_sites_per_call(ucfg, latent_hw, frames: int, ctx_tokens: int) -> dict:
         attend(frames, frames, heads)  # the temporal transformer's two
         attend(frames, frames, heads)
     return counts
+
+
+def video_w8a8_shapes(ucfg, latent_hw, frames: int, rows: int = 2) -> dict:
+    """{(M, K, N): sites} of the W8A8 linear sites in one UNet3D call of
+    ``rows`` clip rows with its step-invariant cache (the video loop's call;
+    the cache's own pass has none): ``transformer_in``'s frame-axis block (8
+    heads) over every pixel of level 0, then at each spatial transformer
+    (proj_in, merged qkv, out, the cross-attention's query and out, the GEGLU
+    in and out, proj_out; its K/V are cached) and the frame-axis transformer
+    after it (proj_in, two merged-qkv self-attentions with their outs, the
+    GEGLU in and out, proj_out), at C channels, M = rows x frames x pixels."""
+    from collections import Counter
+
+    from tweediemix_tpu_torch.models.unet3d import video_cross_attention_names
+
+    h, w = latent_hw
+    n_levels = len(ucfg.block_out_channels)
+    shapes = Counter()
+
+    def block(m, c, inner, selfs):  # proj_in, attentions, GEGLU, proj_out
+        shapes[(m, c, inner)] += 1
+        shapes[(m, inner, 8 * inner)] += 1
+        shapes[(m, 4 * inner, inner)] += 1
+        shapes[(m, inner, c)] += 1
+        for kind in selfs:  # "self": merged qkv and out; "cross": query and out
+            shapes[(m, inner, 3 * inner if kind == "self" else inner)] += 1
+            shapes[(m, inner, inner)] += 1
+
+    c0 = ucfg.block_out_channels[0]
+    block(rows * frames * h * w, c0, 8 * ucfg.attention_head_dim, ("self", "self"))
+    for name in video_cross_attention_names(ucfg):
+        level = n_levels - 1 if name.startswith("mid") else int(name.split("_")[2])
+        if name.startswith("up"):
+            level = n_levels - 1 - level
+        c = ucfg.block_out_channels[level]
+        m = rows * frames * (h >> level) * (w >> level)
+        block(m, c, c, ("self", "cross"))  # the spatial transformer
+        block(m, c, c, ("self", "self"))  # the frame-axis transformer after it
+    return dict(shapes)
 
 
 def _video_inputs(ucfg, vcfg, ctx_len, seed, device):
@@ -2786,6 +2967,7 @@ def phase_cli_video(png: str) -> dict:
         flash_attention_int8,
         quantize_qkv_int8_fused,
     )
+    from tweediemix_tpu_torch.ops.quant import w8a8_matmul_cuda
     from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
     from tweediemix_tpu_torch.utils.image import read_gif
     from tweediemix_tpu_torch.video.pipeline import VideoConfig
@@ -2801,6 +2983,8 @@ def phase_cli_video(png: str) -> dict:
     expected = {k: v * vcfg.n_timesteps for k, v in sites.items()}
     if expected != dict(short=1700, flash=500):
         fail(f"expected 1700 short and 500 flash launches per clip, the config gives {expected}")
+    if sum(video_w8a8_shapes(ucfg, vcfg.latent_hw, vcfg.num_frames).values()) != VIDEO_W8A8_SITES:
+        fail(f"expected {VIDEO_W8A8_SITES} W8A8 linear sites per video UNet call")
     root = tempfile.mkdtemp(prefix="cli_i2vgen_", dir=os.path.join(REPO, "build"))
     try:
         t0 = time.perf_counter()
@@ -2820,6 +3004,7 @@ def phase_cli_video(png: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             flash_attention.launches = flash_attention_int8.launches = 0
             quantize_qkv_int8_fused.launches = short_seq_attention.launches = 0
+            w8a8_matmul_cuda.launches = 0
             rc, text, wall = run_cli(run_video.main, argv)
             launches = dict(short=short_seq_attention.launches, flash=flash_attention.launches,
                             int8=flash_attention_int8.launches,
@@ -2830,6 +3015,12 @@ def phase_cli_video(png: str) -> dict:
                     else dict(short=1700, flash=500, int8=0, int8_quantize=0))
             if launches != want:
                 fail(f"video CLI ({label}) launches {launches}, expected {want}")
+            # every W8A8 linear site of each of the 50 calls through the two kernels
+            launches["w8a8"] = w8a8_matmul_cuda.launches
+            want_w8a8 = VIDEO_W8A8_SITES * vcfg.n_timesteps if int8_core else 0
+            if launches["w8a8"] != want_w8a8:
+                fail(f"video CLI ({label}): {launches['w8a8']} W8A8 linear launches, expected "
+                     f"{want_w8a8}")
             timings = json.loads(text.split("timings: ", 1)[1].splitlines()[0])
             header, frames = read_gif(out)
             if (frames.shape != (vcfg.num_frames, vcfg.height, vcfg.width, 3)
@@ -3339,6 +3530,7 @@ def main() -> None:
     kernel_rows = phase_kernels()
     grad_row = phase_kernel_grad()
     int8_rows = phase_kernels_int8()
+    w8a8_rows, w8a8_video_rows = phase_kernels_w8a8()
     phase_reference()
     reference_train = phase_reference_train()
     reference_w8a8 = phase_reference_w8a8()
@@ -3399,6 +3591,11 @@ def main() -> None:
                             bound_ms=int8_rows[0]["quant_bound_ms"], bound_by="bytes",
                             max_abs_err=max(r["quant_max_abs_err"] for r in int8_rows),
                             library_ms=None)),
+        entry("w8a8_linear", "tweediemix_tpu_torch/csrc/w8a8_linear.cu",
+              "none (tweediemix_tpu/ops/quant.py:101-127 left to XLA)",
+              w8a8["runs"][-1]["w8a8_launches"], w8a8_rows,
+              host_us_per_call=w8a8_rows[0]["host_us_per_call"],
+              cli_video_launches=cli_runs["w8a8"]["launches"]["w8a8"], video_shapes=w8a8_video_rows),
         entry("short_attention", "tweediemix_tpu_torch/csrc/short_attention.cu",
               "tweediemix_tpu/ops/short_attention.py:51", video["runs"][-1]["launches"]["short"],
               short_rows, flushed_ms=short_rows[0]["flushed_ms"],

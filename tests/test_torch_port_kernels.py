@@ -41,6 +41,7 @@ from tweediemix_tpu_torch.ops.flash_attention import (
 )
 
 from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
+from tweediemix_tpu_torch.ops import quant as quant_module
 from tweediemix_tpu_torch.tools import int8_variants, short_timing
 
 # each xdist worker takes its share of the host's cores (a serial run keeps them all)
@@ -59,6 +60,14 @@ SHORT_EDGE_SHAPES = [(300, 1, 4, 64), (300, 7, 4, 64), (300, 12, 5, 64), (300, 1
 # not fill: (N, S, heads, dh) and the rows per tile
 SHORT_RAGGED_SHAPES = [((2049, 16, 5, 64), 2), ((4097, 7, 5, 32), 4), ((1699, 17, 5, 32), 2)]
 H100_SMS = 132
+# (M, K, N) of the SDXL W8A8 sites at 2 and 4 latent rows: six per
+# transformer block and proj_in/proj_out, 4096 tokens a row at 640
+# channels, 1024 at 1280
+W8A8_MAIN_SHAPES = [(rows * tokens, k, n) for rows in (2, 4)
+                    for tokens, pairs in ((4096, ((640, 1920), (640, 640), (640, 5120), (2560, 640))),
+                                          (1024, ((1280, 3840), (1280, 1280), (1280, 10240),
+                                                  (5120, 1280))))
+                    for k, n in pairs]
 
 
 def _card():
@@ -697,3 +706,146 @@ def test_cpu_tensors_never_reach_the_short_kernel(monkeypatch):
     out = multi_head_attention(q, k, v, 2)
     assert torch.equal(out, short_seq_attention_reference(q, k, v, 2))
     assert short_seq_attention.launches == before
+
+
+# -- the W8A8 linear kernels ---------------------------------------------------------
+
+
+def _w8a8_case(m, k, n, dtype, seed, bias=True):
+    """x [m, k] (randn, a few loud rows), an int8 weight [n, k] with fp32
+    scales and a bias on the card; the static abs-max clips the loud rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    x[:: 7] *= 6.0
+    w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+    wq, ws = quant_module.quantize_weight_int8(w)
+    b = torch.randn(n, generator=gen, device="cuda").to(dtype) if bias else None
+    return x.to(dtype), wq, ws, b, 0.5 * x.abs().max().item()
+
+
+def _w8a8_check(x, wq, ws, b, amax):
+    """The kernels' y, x_q and row scales against the plain version's on
+    the card, byte for byte: x_q and the scales read from the work buffer
+    the wrapper is handed."""
+    m, k = x.shape
+    xq_bytes = quant_module.w8a8_work_bytes(m, k, False)
+    work = torch.full((quant_module.w8a8_work_bytes(m, k, True),), 0xA5, dtype=torch.uint8,
+                      device="cuda")
+    y = quant_module.w8a8_matmul_cuda(x, wq, ws, amax, b, work=work)
+    want_q, want_s = quant_module.quantize_activation_int8(x, amax)
+    want = quant_module.w8a8_matmul_reference(x, wq, ws, amax, b)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == want.shape
+    assert torch.equal(work[: m * k].view(torch.int8).view(m, k), want_q), "x_q"
+    if amax > 0:
+        assert (work[xq_bytes:] == 0xA5).all(), "a static scale writes no row scales"
+    else:
+        assert torch.equal(work[xq_bytes:].view(torch.float32), want_s[:, 0]), "row scales"
+    differ = (y != want).sum().item()
+    assert differ == 0, f"{differ} of {y.numel()} outputs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", W8A8_MAIN_SHAPES)
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("bias", [True, False])
+def test_w8a8_kernels_equal_plain_at_the_sdxl_sites_on_card(m, k, n, static, bias):
+    _card()
+    x, wq, ws, b, amax = _w8a8_case(m, k, n, torch.bfloat16, m + k + n, bias)
+    _w8a8_check(x, wq, ws, b, amax if static else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 17, 308])
+@pytest.mark.parametrize("k,n", [(640, 1920), (5120, 1280), (320, 960), (32, 48)])
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_kernels_equal_plain_at_ragged_rows_on_card(m, k, n, static, dtype):
+    """Ragged M (TMA's zero fill and clipped stores), a K that is not a
+    multiple of the 128-wide k tile, N below one tile, and fp32 activations
+    (the tiny presets' UNets under --quant)."""
+    _card()
+    x, wq, ws, b, amax = _w8a8_case(m, k, n, dtype, 3 * m + k + n)
+    _w8a8_check(x, wq, ws, b, amax if static else 0.0)
+
+
+@pytest.mark.cuda
+def test_w8a8_qlinear_launches_the_kernels_on_card():
+    """A bf16 QLinear on the card: two launches a call through
+    ``w8a8_matmul``, its output the plain version's, a [B, S, K] input
+    and a non-contiguous one alike."""
+    _card()
+    lin = quant_module.QLinear(640, 1280).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        lin.bias.normal_()
+    x = torch.randn((2, 300, 640), device="cuda").to(torch.bfloat16)
+    before = quant_module.w8a8_matmul_cuda.launches
+    for static in (0.0, 3.0):
+        lin.static_amax = static
+        with torch.no_grad():
+            got = lin(x)
+            strided = lin(x.transpose(0, 1).contiguous().transpose(0, 1))
+        want = quant_module.w8a8_matmul_reference(x, lin.weight_q, lin.weight_scale, static, lin.bias)
+        assert got.shape == (2, 300, 1280) and torch.equal(got, want) and torch.equal(strided, want)
+    assert quant_module.w8a8_matmul_cuda.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_w8a8_kernels_reject_what_they_do_not_take_on_card():
+    _card()
+    wq = torch.zeros((64, 64), dtype=torch.int8, device="cuda")
+    ws = torch.ones(64, device="cuda")
+    with pytest.raises(TypeError):
+        quant_module.w8a8_matmul(torch.zeros((4, 64), device="cuda", dtype=torch.float16), wq, ws)
+    with pytest.raises(ValueError):
+        quant_module.w8a8_matmul(torch.zeros((4, 72), device="cuda", dtype=torch.bfloat16),
+                                 torch.zeros((64, 72), dtype=torch.int8, device="cuda"), ws)
+    with pytest.raises(ValueError):
+        quant_module.w8a8_matmul(torch.zeros((4, 64), device="cuda", dtype=torch.bfloat16),
+                                 wq.t(), ws)  # not contiguous
+    with pytest.raises(ValueError):
+        quant_module.w8a8_matmul(torch.zeros((4, 64), device="cuda", dtype=torch.bfloat16),
+                                 wq.cpu(), ws)
+    with pytest.raises(ValueError):  # a work buffer one byte short
+        quant_module.w8a8_matmul_cuda(
+            torch.zeros((4, 64), device="cuda", dtype=torch.bfloat16), wq, ws,
+            work=torch.empty(quant_module.w8a8_work_bytes(4, 64, True) - 1, dtype=torch.uint8,
+                             device="cuda"))
+
+
+@pytest.mark.cuda
+def test_w8a8_check_catches_a_skipped_k_tile_on_card(tmp_path, monkeypatch):
+    """Mutation check: a copy of the GEMM whose consumers skip their second
+    k tile (no product issued for it, its stage still released) must fail
+    the byte comparison with the plain version."""
+    _card()
+    loop = "for (int kk = 0; kk < kBlockK / 32; ++kk) {"
+    src = _copy_sources("w8a8_linear", tmp_path)
+    assert src.count(loop) == 1
+    skip = "for (int kk = 0; kk < (kt == 1 ? 0 : kBlockK / 32); ++kk) {"
+    (tmp_path / "w8a8_linear.cu").write_text(src.replace(loop, skip))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    lib = ctypes.CDLL(str(cuda_build.build_library("w8a8_linear")))
+    monkeypatch.setattr(quant_module, "_launcher", lambda: (lib, quant_module.bind(lib)))
+    x, wq, ws, b, _ = _w8a8_case(2048, 1280, 1280, torch.bfloat16, 7)
+    y = quant_module.w8a8_matmul(x, wq, ws, 0.0, b)
+    want = quant_module.w8a8_matmul_reference(x, wq, ws, 0.0, b)
+    torch.cuda.synchronize()
+    rel = _rel(y, want.float())
+    print(f"W8A8 GEMM with its second k tile skipped: max err / max |plain| = {rel:.3e}")
+    assert rel > 1e-2
+
+
+def test_cpu_tensors_never_reach_the_w8a8_kernels(monkeypatch):
+    def no_library(name):
+        raise AssertionError("CPU tensors must take the plain version")
+
+    monkeypatch.setattr(quant_module, "load_library", no_library)
+    lin = quant_module.QLinear(64, 48)
+    x = torch.randn((2, 5, 64))
+    before = quant_module.w8a8_matmul_cuda.launches
+    with torch.no_grad():
+        got = lin(x)
+    want = quant_module.w8a8_matmul_reference(x, lin.weight_q, lin.weight_scale, 0.0, lin.bias)
+    assert torch.equal(got, want) and quant_module.w8a8_matmul_cuda.launches == before

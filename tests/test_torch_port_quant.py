@@ -166,6 +166,101 @@ def test_w8a8_matmul_matches_jax(static_amax, monkeypatch):
     assert torch.equal(zeros, torch.zeros(2, 5, 40))
 
 
+@pytest.mark.parametrize("static_amax", [0.0, 2.5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_matmul_takes_the_bias_as_the_module_added_it(static_amax, dtype):
+    """The plain version with ``bias=`` equals the product cast to x's dtype
+    plus the bias in that dtype (what ``QLinear`` computed before the bias
+    moved into ``w8a8_matmul``) bit for bit, and a CPU ``QLinear`` equals
+    that composition."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_randn(rng, (3, 7, 48))).to(dtype)
+    lin = port_quant.QLinear(48, 32).to(dtype)
+    lin.static_amax = static_amax
+    with torch.no_grad():
+        lin.bias.copy_(torch.from_numpy(_randn(rng, (32,))))
+    wq, ws, b = lin.weight_q, lin.weight_scale, lin.bias.detach()
+    composed = port_quant.w8a8_matmul_reference(x, wq, ws, static_amax) + b.to(dtype)
+    for got in (port_quant.w8a8_matmul_reference(x, wq, ws, static_amax, b),
+                port_quant.w8a8_matmul(x, wq, ws, static_amax, bias=b), lin(x).detach()):
+        assert got.dtype == dtype and torch.equal(got, composed)
+
+
+@pytest.mark.parametrize("static_amax", [0.0, 2.5])
+def test_w8a8_matmul_with_bias_matches_jax(static_amax, monkeypatch):
+    """The JAX package's site adds its bias after ``w8a8_matmul``; the
+    port's takes it as an argument."""
+    rng = np.random.default_rng(4)
+    x, w, b = _randn(rng, (2, 9, 64)), _randn(rng, (64, 48), 0.2), _randn(rng, (48,))
+    wq, ws = jax_quant.quantize_weight_int8(w)
+    monkeypatch.setenv("TWEEDIEMIX_QUANT_STATIC_SCALE", str(static_amax))
+    want = np.asarray(jax_quant.w8a8_matmul(x, wq, ws)) + b
+    pq, ps = port_quant.quantize_weight_int8(torch.from_numpy(w.T.copy()))
+    got = port_quant.w8a8_matmul(torch.from_numpy(x), pq, ps, static_amax, bias=torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), want, atol=OP_TOL, rtol=OP_TOL)
+
+
+def test_qlinear_hands_its_bias_to_the_w8a8_matmul_seam(monkeypatch):
+    """``QLinear`` reaches its product through the module-level
+    ``w8a8_matmul`` (the seam ``forced_port_sites`` patches) with the bias
+    as a keyword, and a bias-free site passes None."""
+    seen = []
+
+    def spy(x, wq, wscale, static_amax=0.0, bias=None):
+        seen.append(bias)
+        return port_quant.w8a8_matmul_reference(x, wq, wscale, static_amax, bias)
+
+    monkeypatch.setattr(port_quant, "w8a8_matmul", spy)
+    x = torch.randn(4, 32)
+    with torch.no_grad():
+        port_quant.QLinear(32, 16)(x)
+        port_quant.QLinear(32, 16, bias=False)(x)
+    assert len(seen) == 2 and seen[0] is not None and seen[0].shape == (16,) and seen[1] is None
+
+
+@pytest.mark.parametrize("k,n,dtype,error", [
+    (72, 64, torch.bfloat16, ValueError), (64, 40, torch.bfloat16, ValueError),
+    (8, 64, torch.float32, ValueError), (64, 64, torch.float16, TypeError),
+    (64, 64, torch.float64, TypeError)])
+def test_w8a8_kernel_args_refuse_what_the_kernels_lack(k, n, dtype, error):
+    with pytest.raises(error):
+        port_quant.check_w8a8_args(k, n, dtype)
+
+
+# (M, K, N) of the SDXL W8A8 linear sites at 2 and 4 latent rows
+SDXL_W8A8_SHAPES = [(rows * tokens, k, n) for rows in (2, 4)
+                    for tokens, pairs in ((4096, ((640, 1920), (640, 640), (640, 5120), (2560, 640))),
+                                          (1024, ((1280, 3840), (1280, 1280), (1280, 10240),
+                                                  (5120, 1280))))
+                    for k, n in pairs]
+
+
+@pytest.mark.parametrize("m,k,n", SDXL_W8A8_SHAPES)
+def test_w8a8_tile_plan_fills_the_sms_at_the_sdxl_sites(m, k, n):
+    """Every SDXL site takes the kernels (bf16, K and N multiples of 16),
+    its N is a whole number of the GEMM's tile columns, and its last wave of
+    tiles fills at least 90% of an H100's 132 SMs."""
+    for dtype in port_quant.W8A8_DTYPE_CODES:
+        port_quant.check_w8a8_args(k, n, dtype)
+    assert n % port_quant.W8A8_BLOCK_N == 0
+    tiles = -(-m // port_quant.W8A8_BLOCK_M) * (n // port_quant.W8A8_BLOCK_N)
+    waves = -(-tiles // 132)
+    grid = port_quant.gemm_grid(m, n, 132)
+    assert grid == min(tiles, 132) and tiles / (waves * 132) >= 0.9, tiles
+
+
+@pytest.mark.parametrize("m,n", [(1, 16), (17, 48), (308, 960), (4096, 640), (131072, 1280)])
+def test_w8a8_tile_plan_of_ragged_and_video_rows(m, n):
+    """One block per tile up to one per SM, a partial tile counted whole;
+    the work buffer holds x_q padded to 16 bytes, then 4 bytes a row for
+    a dynamic scale."""
+    tiles = -(-m // 128) * -(-n // 160)
+    assert port_quant.gemm_grid(m, n, 132) == min(tiles, 132) >= 1
+    xq = -(-m * 320 // 16) * 16
+    assert port_quant.w8a8_work_bytes(m, 320, False) == xq
+    assert port_quant.w8a8_work_bytes(m, 320, True) == xq + 4 * m
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_w8a8_conv_matches_jax(stride):
     rng = np.random.default_rng(2)

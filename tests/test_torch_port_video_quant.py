@@ -22,6 +22,8 @@ import torch
 
 import contextlib
 import os
+import sys
+from collections import Counter
 
 from tests.test_torch_port_quant import MODEL_TOL, forced_port_sites
 from tests.test_torch_port_video import numpy_params
@@ -30,7 +32,10 @@ from tweediemix_tpu.models import unet3d as jax_unet3d
 from tweediemix_tpu.ops import quant as jax_quant
 from tweediemix_tpu_torch.models import unet3d as port_unet3d
 from tweediemix_tpu_torch.models.convert import load_params
+from tweediemix_tpu_torch.ops import attention as port_attention
 from tweediemix_tpu_torch.ops import quant as port_quant
+from tweediemix_tpu_torch.ops import short_attention as port_short_attention
+from tweediemix_tpu_torch.video.pipeline import VideoConfig
 
 # each xdist worker takes its share of the host's cores (a serial run keeps them all)
 torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
@@ -124,9 +129,10 @@ def test_quantised_unet3d_matches_jax(quant, cached, tiny_case, monkeypatch):
 
     def keep(fn):
         def wrapped(*a, **k):
-            y = fn(*a, **k)
-            pouts.append(y.float().numpy())
-            return y
+            # the JAX spy records a matmul site's product before its module adds the bias
+            bare = fn(*a, **dict(k, bias=None)) if "bias" in k else fn(*a, **k)
+            pouts.append(bare.float().numpy())
+            return fn(*a, **k)
         return wrapped
 
     with jax_sites(monkeypatch, jouts) as recorded:
@@ -209,3 +215,43 @@ def test_quantised_unet3d_keeps_the_float_modules_float():
     assert isinstance(port.get_submodule("down_blocks.0.resnets.0.conv1"), port_quant.QConv2d)
     with pytest.raises(ValueError, match="quant"):
         port_unet3d.UNet3DConfig.tiny(quant="int4")
+
+
+def test_video_w8a8_shapes_are_the_loop_calls_sites(monkeypatch):
+    """``chip_smoke.video_w8a8_shapes`` (the shapes the card compares the
+    W8A8 kernels at, and the 264 sites a call it holds the video CLI's
+    launches to) equals the (M, K, N) that I2VGen-XL's UNet3D hands
+    ``w8a8_matmul`` in the loop's 2-row call, recorded on the meta device
+    with the attention cores stubbed; the step-invariant cache's pass hands
+    it none."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    seen = Counter()
+
+    def spy(x, wq, wscale, static_amax=0.0, bias=None):
+        seen[(x.numel() // x.shape[-1], wq.shape[1], wq.shape[0])] += 1
+        return torch.empty((*x.shape[:-1], wq.shape[0]), dtype=x.dtype, device=x.device)
+
+    monkeypatch.setattr(port_quant, "w8a8_matmul", spy)
+    monkeypatch.setattr(port_attention, "attention", lambda q, k, v, scale=None: torch.empty_like(q))
+    monkeypatch.setattr(port_short_attention, "short_seq_attention",
+                        lambda q, k, v, heads, scale: torch.empty_like(q))
+    ucfg = port_unet3d.UNet3DConfig.i2vgen(dtype=torch.bfloat16, quant="int8")
+    vcfg = VideoConfig()
+    unet = port_unet3d.UNet3DConditionModel(ucfg, device="meta").to(torch.bfloat16)
+    h, w = vcfg.latent_hw
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    x = torch.empty((2, vcfg.num_frames, h, w, 4), **meta)
+    ctx = torch.empty((2, 77, ucfg.cross_attention_dim), **meta)
+    emb = torch.empty((2, ucfg.cross_attention_dim), **meta)
+    fps = torch.full((2,), float(vcfg.fps), device="meta")
+    with torch.inference_mode():
+        cctx, cil, kv = port_unet3d.precompute_video_cache(unet, ctx, x, emb, fps)
+        assert not seen
+        unet(x, 501, ctx, x, emb, fps, False, False, vcfg.interp_ratio, cached_ctx=cctx,
+             cached_il=cil, cross_kv=kv)
+    want = chip_smoke.video_w8a8_shapes(ucfg, vcfg.latent_hw, vcfg.num_frames)
+    assert dict(seen) == want and sum(want.values()) == chip_smoke.VIDEO_W8A8_SITES == 264
+    for m, k, n in want:
+        port_quant.check_w8a8_args(k, n, torch.bfloat16)

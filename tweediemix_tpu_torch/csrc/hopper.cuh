@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// shared-memory mbarriers, TMA tensor loads from 3-D and 4-D tensor maps,
+// shared-memory mbarriers, TMA tensor loads from 2-D, 3-D and 4-D tensor maps,
 // TMA tensor stores with their bulk groups, named barriers, register
 // rebalancing between warpgroups, and warpgroup matrix multiplies (wgmma)
 // with their shared-memory descriptors. Raw PTX, no CUTLASS. A source that includes this header is rebuilt when the header
@@ -107,6 +107,30 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copy the box at (c0, c1) (innermost first) of a 2-D tensor map into shared
+// memory at `dst`; completion is counted in bytes on `bar`. Elements outside
+// the tensor are zero-filled (and counted).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Copy shared memory at `src`, laid out as one box of a 2-D tensor map, to
+// the box at (c0, c1) of the tensor; elements outside the tensor are not
+// written. The store joins the issuing thread's current bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -482,6 +506,21 @@ __device__ __forceinline__ void wgmma_s8_rs_m64n128(int (&d)[64], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_s8_ss_m64n160(int (&d)[80], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      : HOPPER_R16(0), HOPPER_R16(16), HOPPER_R16(32), HOPPER_R16(48), HOPPER_R16(64)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 #undef HOPPER_R4
 #undef HOPPER_R16
 #undef HOPPER_D16
@@ -573,6 +612,25 @@ inline bool encode_bf16_4d(CUtensorMap* map, const void* ptr, const uint64_t (&d
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), d, st, b,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D tensor map over a row-major tensor [rows, cols] of `elem_bytes`-byte
+// elements (`dtype`) whose rows lie `row_bytes` apart (a multiple of 16),
+// with boxes of [box_rows, box_cols] and the given swizzle (box_cols *
+// elem_bytes at most its span). Elements outside the tensor read as zeros
+// and are not written by a store. Returns false if the driver refuses it.
+inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, uint64_t rows,
+                      uint64_t cols, uint64_t row_bytes, uint32_t box_rows, uint32_t box_cols,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

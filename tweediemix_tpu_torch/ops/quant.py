@@ -7,11 +7,15 @@ of ``tweediemix_tpu/ops/quant.py``).
 * **Activations**: a dynamic per-row scale (abs-max over the last axis) or,
   where a static abs-max is set for the site, one per-tensor scale
   ``amax/127``. Convolutions take a per-sample scale over C, H and W.
-* **Product**: exact int8 x int8 -> int32 (``torch._int_mm``, a library
-  GEMM: the JAX package left this product to XLA, outside any Pallas
-  kernel), then ``acc * xscale * wscale`` in fp32, cast to x's dtype. The
+* **Product**: exact int8 x int8 -> int32, then ``acc * xscale * wscale``
+  in fp32, cast to x's dtype, then the bias added in that dtype. The
   product is never taken in fp32: |acc| reaches 127²·5120 ≈ 8.3e7, past
-  2^24.
+  2^24. The JAX package left it to XLA, outside any Pallas kernel. On the
+  card ``w8a8_matmul`` runs it as two hand-written Hopper launches
+  (``csrc/w8a8_linear.cu``: a one-pass quantise, then an int8 ``wgmma``
+  GEMM with the dequantise, cast and bias in its epilogue), bit for bit
+  the plain version ``w8a8_matmul_reference``, which CPU tensors take.
+  Convolutions keep ``torch._int_mm`` (``int_mm``), one per kernel tap.
 
 ``QLinear`` and ``QConv2d`` hold the int8 weight (``weight_q``, a buffer)
 and its fp32 per-channel scales (``weight_scale``, kept fp32 when the module
@@ -29,6 +33,8 @@ sets them from a table passed in explicitly (no environment snapshot);
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
 from typing import Iterable, Mapping, Optional, Union
 
@@ -36,9 +42,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tweediemix_tpu_torch.ops.cuda_build import check_launch, load_library
 from tweediemix_tpu_torch.utils import profiling
 
 QUANT_MODES = ("int8", "int8_conv")
+# the activation dtypes the W8A8 kernels take (their C entry's codes), and
+# the GEMM's tile of rows x columns; K and N must be multiples of 16
+W8A8_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+W8A8_BLOCK_M, W8A8_BLOCK_N = 128, 160
 
 
 def quantize_weight_int8(w: torch.Tensor):
@@ -74,21 +85,166 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)[:m]
 
 
-def w8a8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-                static_amax: float = 0.0) -> torch.Tensor:
-    """``x @ dequant(wq).T`` with int8 activations. x [..., K]; wq int8
-    [N, K]; wscale fp32 [N]. ``static_amax > 0`` gives the per-tensor scale
-    ``static_amax/127``, else each row takes its own abs-max scale. Returns
-    [..., N] in x's dtype."""
+def quantize_activation_int8(x: torch.Tensor, static_amax: float = 0.0):
+    """The plain version's int8 activations: (xq int8 [..., K], xscale
+    fp32), the scale a 0-d tensor ``static_amax/127`` where static_amax > 0,
+    else each row's ``max(abs-max / 127, 1e-12)`` [..., 1]."""
     xf = x.float()
     if static_amax > 0:
         xscale = torch.tensor(static_amax / 127.0, dtype=torch.float32, device=x.device)
     else:
         xscale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-12)
-    xq = _quantize(xf, xscale)
+    return _quantize(xf, xscale), xscale
+
+
+def w8a8_matmul_reference(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                          static_amax: float = 0.0, bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain version of ``w8a8_matmul``, on any device: the quantise, the
+    int8 product and the dequantise as PyTorch operations."""
+    xq, xscale = quantize_activation_int8(x, static_amax)
     acc = int_mm(xq.reshape(-1, xq.shape[-1]), wq.t())
     acc = acc.reshape(*x.shape[:-1], wq.shape[0])
-    return (acc.float() * xscale * wscale).to(x.dtype)
+    y = (acc.float() * xscale * wscale).to(x.dtype)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def w8a8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                static_amax: float = 0.0, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ dequant(wq).T (+ bias)`` with int8 activations. x [..., K]; wq
+    int8 [N, K]; wscale fp32 [N]; bias [N] or None. ``static_amax > 0``
+    gives the per-tensor scale ``static_amax/127``, else each row takes its
+    own abs-max scale. Returns [..., N] in x's dtype, the bias added after
+    the cast.
+
+    On a CUDA tensor this launches the two Hopper kernels
+    (``w8a8_matmul_cuda``) or raises; on a CPU tensor it returns the plain
+    version."""
+    if not x.is_cuda:
+        return w8a8_matmul_reference(x, wq, wscale, static_amax, bias)
+    return w8a8_matmul_cuda(x, wq, wscale, static_amax, bias)
+
+
+def check_w8a8_args(k: int, n: int, dtype: torch.dtype) -> None:
+    """Raise on what the W8A8 kernels do not take: K or N not a multiple of
+    16, an activation dtype without a kernel."""
+    if dtype not in W8A8_DTYPE_CODES:
+        raise TypeError(f"W8A8 kernels take {sorted(map(str, W8A8_DTYPE_CODES))} activations, "
+                        f"got {dtype}")
+    if k % 16 or n % 16 or k < 16 or n < 16:
+        raise ValueError(f"W8A8 kernels take K and N multiples of 16, got K={k}, N={n}")
+
+
+def gemm_grid(m: int, n: int, sms: int) -> int:
+    """Blocks of the persistent GEMM at [m, K] x [n, K]: one per SM, at most
+    one per tile of ``W8A8_BLOCK_M`` x ``W8A8_BLOCK_N``."""
+    return min(-(-m // W8A8_BLOCK_M) * -(-n // W8A8_BLOCK_N), sms)
+
+
+def w8a8_work_bytes(m: int, k: int, dynamic: bool) -> int:
+    """Bytes of the work buffer between the two launches: x_q int8 [m, k],
+    then, for a dynamic scale, the rows' fp32 scales [m] at byte
+    ``16·ceil(m·k/16)``."""
+    return -(-m * k // 16) * 16 + 4 * m * dynamic
+
+
+def bind(lib):
+    """The typed C entry point of a built W8A8 library."""
+    fn = lib.tm_w8a8_linear
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
+def _launcher():
+    lib = load_library("w8a8_linear")
+    return lib, bind(lib)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (x.shape, wq.shape, dtype, device index) -> (m, out_shape, the work
+# buffer's bytes for a static and a dynamic scale, the C plan {m, n, k, dtype
+# code, grid} and its address): a site's checks and plan, made once
+_SITE_PLANS: dict = {}
+
+
+def _site_plan(x: torch.Tensor, wq: torch.Tensor, index: int) -> tuple:
+    key = (x.shape, wq.shape, x.dtype, index)
+    plan = _SITE_PLANS.get(key)
+    if plan is None:
+        n, k = wq.shape
+        check_w8a8_args(k, n, x.dtype)
+        if x.shape[-1] != k:
+            raise ValueError(f"x has {x.shape[-1]} features, the weight {k}")
+        m = x.numel() // k
+        c_plan = (ctypes.c_int32 * 5)(m, n, k, W8A8_DTYPE_CODES[x.dtype],
+                                      gemm_grid(m, n, _sms(index)) if m else 0)
+        plan = (m, (*x.shape[:-1], n), (w8a8_work_bytes(m, k, False), w8a8_work_bytes(m, k, True)),
+                c_plan, ctypes.addressof(c_plan))
+        _SITE_PLANS[key] = plan
+    return plan
+
+
+def w8a8_matmul_cuda(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                     static_amax: float = 0.0, bias: Optional[torch.Tensor] = None,
+                     work: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``w8a8_matmul`` on the card: the quantise and the GEMM, two launches
+    on the current stream; raises on what the kernels do not take. The
+    quantise writes x_q and the rows' scales to a block of the caching
+    allocator, or to ``work`` where it is given (a contiguous, 16-byte
+    aligned uint8 tensor of at least ``w8a8_work_bytes`` on x's card, laid
+    out as that function says), where a caller can read them. ``w8a8_matmul_cuda.launches`` counts the calls
+    that launch the kernels."""
+    index = x.get_device()
+    m, out_shape, work_bytes, _, plan = _site_plan(x, wq, index)
+    n = wq.shape[0]
+    if wq.dtype != torch.int8 or wscale.dtype != torch.float32 or not wq.is_contiguous() \
+            or not wscale.is_contiguous() or wscale.shape[0] != n:
+        raise ValueError("W8A8 kernels take a contiguous int8 weight and its fp32 scales")
+    if wq.get_device() != index or wscale.get_device() != index or \
+            (bias is not None and (bias.get_device() != index or bias.shape[0] != n)):
+        raise ValueError("W8A8 kernels take x, the weight, its scales and the bias on one card")
+    dynamic = not static_amax > 0
+    work_bytes = work_bytes[dynamic]
+    if work is not None and (work.dtype != torch.uint8 or work.get_device() != index
+                             or not work.is_contiguous() or work.numel() < work_bytes
+                             or work.data_ptr() % 16):
+        raise ValueError(f"the W8A8 work buffer takes {work_bytes} contiguous bytes on x's card, "
+                         f"16-byte aligned")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    if bias is not None and (bias.dtype != x.dtype or not bias.is_contiguous()):
+        bias = bias.to(x.dtype).contiguous()
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return w8a8_matmul_cuda(x, wq, wscale, static_amax, bias, work)
+    y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    if m:
+        lib, fn = _launcher()
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        # a block of the caching allocator and no tensor (nor an op for the profiler to
+        # record), freed stream-ordered as a tensor is: the next user of the block on this
+        # stream runs after these launches
+        ptr = torch._C._cuda_cudaCachingAllocator_raw_alloc(work_bytes, stream) \
+            if work is None else work.data_ptr()
+        try:
+            err = fn(plan, x.data_ptr(), wq.data_ptr(), wscale.data_ptr(),
+                     None if bias is None else bias.data_ptr(), ptr, y.data_ptr(),
+                     0.0 if dynamic else static_amax / 127.0, stream)
+        finally:
+            if work is None:
+                torch._C._cuda_cudaCachingAllocator_raw_delete(ptr)
+        check_launch(lib, err, "w8a8_matmul")
+        w8a8_matmul_cuda.launches += 1
+    return y
+
+
+w8a8_matmul_cuda.launches = 0
 
 
 def w8a8_conv(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
@@ -166,8 +322,7 @@ class QLinear(_Int8Weight):
             return self._product(x)
 
     def _product(self, x: torch.Tensor) -> torch.Tensor:
-        y = w8a8_matmul(x, self.weight_q, self.weight_scale, self.static_amax)
-        return y if self.bias is None else y + self.bias.to(y.dtype)
+        return w8a8_matmul(x, self.weight_q, self.weight_scale, self.static_amax, bias=self.bias)
 
 
 class QConv2d(_Int8Weight):

@@ -324,7 +324,8 @@ class FusionSampler:
             raise ValueError("no fg_masks supplied and no decode/segment fns configured")
         per_seed = []
         for si in range(preview_x0.shape[0]):
-            preview_img = self.decode_preview_fn(preview_x0[si : si + 1])
+            with span("preview", seed_row=si):
+                preview_img = self.decode_preview_fn(preview_x0[si : si + 1])
             with span("segment", seed_row=si):
                 fg = torch.as_tensor(self.segment_fn(preview_img), device=preview_x0.device)
             if fg.shape[0] != cfg.num_concepts - 1:

@@ -34,8 +34,9 @@ from tweediemix_tpu_torch.segmentation.detector import (
     DetectorConfig,
     TextBoxDetector,
 )
-from tweediemix_tpu_torch.segmentation.expand import expand_masks
+from tweediemix_tpu_torch.segmentation.expand import expand_and_resolve, predict_in_turn
 from tweediemix_tpu_torch.segmentation.sam import SAM, SAMConfig
+from tweediemix_tpu_torch.utils.profiling import span
 
 # segment-anything's pixel statistics (0-255 scale)
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
@@ -169,23 +170,28 @@ class LangSAM:
         image = image.to(self.device, torch.float32)
         h, w = image.shape[:2]
         chw = image.permute(2, 0, 1)
-        if self.dino is not None:
-            boxes, scores = self.dino(image, text)
-        else:
-            mean = torch.tensor(CLIP_IMAGE_MEAN, device=self.device)
-            std = torch.tensor(CLIP_IMAGE_STD, device=self.device)
-            det_size = self.detector.config.vision.image_size
-            det_img = (resize_bilinear(chw, det_size, det_size).permute(1, 2, 0) - mean) / std
-            max_len = self.detector.config.text.max_positions
-            ids = torch.tensor(self.tokenizer([text]), dtype=torch.long, device=self.device)[:, :max_len]
-            boxes, scores = self.detector(det_img[None], ids)
+        with span("langsam.detect", phrase=text):
+            if self.dino is not None:
+                boxes, scores = self.dino(image, text)
+            else:
+                mean = torch.tensor(CLIP_IMAGE_MEAN, device=self.device)
+                std = torch.tensor(CLIP_IMAGE_STD, device=self.device)
+                det_size = self.detector.config.vision.image_size
+                det_img = (resize_bilinear(chw, det_size, det_size).permute(1, 2, 0) - mean) / std
+                max_len = self.detector.config.text.max_positions
+                ids = torch.tensor(self.tokenizer([text]), dtype=torch.long,
+                                   device=self.device)[:, :max_len]
+                boxes, scores = self.detector(det_img[None], ids)
 
-        sam_size = self.sam.config.image_size
-        sam_img = resize_bilinear(chw, sam_size, sam_size).permute(1, 2, 0)
-        sam_img = (sam_img * 255.0 - torch.tensor(SAM_PIXEL_MEAN, device=self.device)) / torch.tensor(
-            SAM_PIXEL_STD, device=self.device)
-        mask_logits, _ = self.sam(sam_img[None], boxes)
-        return resize_bilinear(mask_logits, h, w), boxes, scores
+        with span("langsam.encode"):
+            sam_size = self.sam.config.image_size
+            sam_img = resize_bilinear(chw, sam_size, sam_size).permute(1, 2, 0)
+            sam_img = (sam_img * 255.0 - torch.tensor(SAM_PIXEL_MEAN, device=self.device)) / torch.tensor(
+                SAM_PIXEL_STD, device=self.device)
+            feats = self.sam.encode_image(sam_img[None])
+        with span("langsam.decode", boxes=int(boxes.shape[0])):
+            mask_logits, _ = self.sam.decode_boxes(feats, boxes)
+            return resize_bilinear(mask_logits, h, w), boxes, scores
 
     def predict(self, image: torch.Tensor, text: str, box_threshold: Optional[float] = None):
         """image [H, W, 3] in [0, 1] → (masks [K, H, W] bool = logits > 0,
@@ -238,11 +244,22 @@ def make_model_segment_fn(lang_sam: LangSAM, seg_concepts: str) -> Callable:
     lists (concept, top score) of every concept, ``segment_fn.areas`` the
     share of the image each returned mask covers, and
     ``segment_fn.seconds`` the last call's wall time (ending in a device
-    synchronise)."""
+    synchronise), and ``segment_fn.own_seconds`` its own part: on the
+    card, the device's time from where its stream reached the call (after
+    the work queued before it, such as the preview decode) to its last
+    operation, from two timing events; elsewhere ``seconds``.
+
+    While the profiler records, a call is the span ``langsam`` (phrases,
+    boxes per phrase, fallbacks), the root of a call made alone, so its
+    syncs are counted; it holds each phrase's ``langsam.detect``,
+    ``langsam.encode`` and ``langsam.decode`` (``LangSAM.predict_logits``)
+    and one ``langsam.expand``."""
     concepts: List[str] = seg_concepts.split("+")
+    boxes = []  # boxes per phrase of the call, for its span
 
     def predict_best(img, text):
         masks, _, scores, valid = lang_sam.predict(img, text)
+        boxes.append(int(scores.shape[0]))
         top = float(scores[0])
         segment_fn.top_scores.append((text, top))
         if not bool(valid.any()):
@@ -256,15 +273,29 @@ def make_model_segment_fn(lang_sam: LangSAM, seg_concepts: str) -> Callable:
 
     def segment_fn(preview_image: torch.Tensor) -> torch.Tensor:
         segment_fn.no_detections, segment_fn.top_scores = [], []
+        boxes.clear()
         t0 = time.perf_counter()
-        img = preview_image[0] if preview_image.ndim == 4 else preview_image
-        out = expand_masks(predict_best, img.to(lang_sam.device, torch.float32), concepts)
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
-        segment_fn.seconds = time.perf_counter() - t0
-        segment_fn.areas = out.mean(dim=(1, 2)).tolist()
+        dev = lang_sam.device
+        start = torch.cuda.Event(enable_timing=True) if dev.type == "cuda" else None
+        if start is not None:
+            start.record(torch.cuda.current_stream(dev))
+        with span("langsam", phrases=len(concepts)) as sp:
+            img = preview_image[0] if preview_image.ndim == 4 else preview_image
+            masks = predict_in_turn(predict_best, img.to(lang_sam.device, torch.float32), concepts)
+            with span("langsam.expand"):
+                out = expand_and_resolve(masks)
+            if start is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(torch.cuda.current_stream(dev))
+                torch.cuda.synchronize(dev)
+            segment_fn.seconds = time.perf_counter() - t0
+            segment_fn.own_seconds = (start.elapsed_time(end) / 1e3 if start is not None
+                                      else segment_fn.seconds)
+            segment_fn.areas = out.mean(dim=(1, 2)).tolist()
+            if sp is not None:
+                sp.attrs.update(boxes=list(boxes), fallbacks=len(segment_fn.no_detections))
         return out
 
     segment_fn.no_detections, segment_fn.top_scores, segment_fn.areas = [], [], []
-    segment_fn.seconds = 0.0
+    segment_fn.seconds = segment_fn.own_seconds = 0.0
     return segment_fn

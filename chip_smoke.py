@@ -39,7 +39,9 @@ JAX or of the JAX package. Phases:
    ``sdxl(concept_slots=4)`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps at 1024², N=3, t_cond 0.2, resampling 10, jumping 5, half
    masks) through ``TweedieMixPipeline.sample``, twice, with the kernel's
-   launch count checked on each run; then two seeds unsharded and over a
+   launch count checked on each run, then once more under torch.profiler,
+   where the flash-kernel events of the trace (the UNet calls are CUDA
+   graph replays) and the counter must both read 5250; then two seeds unsharded and over a
    2-entry mesh on ``cuda:0`` (``parallel/mesh.py``: every UNet call's rows
    split in two, so twice the launches), the latents held to each other;
    then one batch-4 and one batch-2 UNet
@@ -101,7 +103,9 @@ JAX or of the JAX package. Phases:
    attention core on (``TWEEDIEMIX_FLASH_INT8=1``): one warm and one timed
    call, the int8 kernel's and its quantise passes' launch counts checked
    and the bf16 kernel's held at 0, the W8A8 linear kernels' at 442 a UNet
-   call, two synchronising operations in a UNet call, then one batch-4 call
+   call, and the same counts from the kernel events of a third, traced
+   call and from the counters over it; no synchronising operation in a
+   replayed UNet call, then one batch-4 call
    profiled with the int8 core on and off;
 6. video: the short-sequence (frame-axis) kernel against its plain version
    at the video path's five shapes (as views of a merged qkv and
@@ -856,6 +860,15 @@ def phase_main_path() -> dict:
         if launches != expected:
             fail(f"flash_attention launched {launches} times on the main path, expected {expected}")
         runs.append(stats)
+    # the launches on the card, from a trace of one more image: its UNet calls are replays
+    flash_attention.launches = 0
+    traced = traced_launches(lambda: pipe.sample(embeds, seed=2, fg_masks=fg, num_seeds=1),
+                             ("flash_fwd_kernel",))
+    traced["counter"] = flash_attention.launches
+    log(f"main path traced image: {json.dumps(traced)}")
+    if traced["kernels"]["flash_fwd_kernel"] != expected or traced["counter"] != expected:
+        fail(f"main path traced image: {traced['kernels']['flash_fwd_kernel']} flash-kernel events "
+             f"in the trace, the counter {traced['counter']}; expected {expected}")
     mesh = mesh_fusion(pipe, embeds, fg, expected)
     # the fp32 decode alone: its mid-block attention holds a 16384 x 16384
     # fp32 score matrix (1 GiB) and its softmax
@@ -872,7 +885,7 @@ def phase_main_path() -> dict:
                               torch.zeros(2, dtype=torch.long, device="cuda"))}
     profile = {label: profile_call(pipe, label, *call) for label, call in calls.items()}
     return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib, profile=profile,
-                mesh=mesh)
+                mesh=mesh, traced=traced)
 
 
 def two_entry_mesh():
@@ -2411,24 +2424,41 @@ def phase_w8a8_main_path() -> dict:
                 fail(f"W8A8 main path: the W8A8 linear kernels ran {w8a8_matmul_cuda.launches} "
                      f"times, expected {W8A8_SITES} x {fcfg.unet_calls()} UNet calls")
             runs.append(stats)
+        # the launches on the card, from a trace of one more sample: its UNet calls are replays
+        flash_attention.launches = flash_attention_int8.launches = 0
+        quantize_qkv_int8_fused.launches = w8a8_matmul_cuda.launches = 0
+        traced = traced_launches(
+            lambda: pipe.sample(embeds, seed=2, fg_masks=fg, num_seeds=seeds),
+            ("flash_int8_wgmma_kernel", "quantize_kernel", "w8a8_int8_gemm_kernel",
+             "flash_fwd_kernel"))
+        traced["counters"] = dict(flash_int8_wgmma_kernel=flash_attention_int8.launches,
+                                  quantize_kernel=quantize_qkv_int8_fused.launches,
+                                  w8a8_int8_gemm_kernel=w8a8_matmul_cuda.launches,
+                                  flash_fwd_kernel=flash_attention.launches)
+        log(f"W8A8 main path traced sample: {json.dumps(traced)}")
+        want = dict(flash_int8_wgmma_kernel=expected, quantize_kernel=expected,
+                    w8a8_int8_gemm_kernel=W8A8_SITES * fcfg.unet_calls(), flash_fwd_kernel=0)
+        if traced["kernels"] != want or traced["counters"] != want:
+            fail(f"W8A8 main path traced sample: kernel events {traced['kernels']}, counters "
+                 f"{traced['counters']}; expected {want}")
         call = (embeds.concept_ctx, embeds.concept_pooled, torch.arange(b, device="cuda"))
         syncs = count_syncs(pipe, *call)
-        log(f"W8A8 main path: {syncs} synchronising CUDA operations in one UNet call")
-        if syncs != 2:
-            fail(f"W8A8 main path: {syncs} host syncs in one UNet call, expected 2 (time_ids "
-                 f"and the timestep)")
+        log(f"W8A8 main path: {syncs} synchronising CUDA operations in one replayed UNet call")
+        if syncs != 0:
+            fail(f"W8A8 main path: {syncs} host syncs in one replayed UNet call, expected 0")
         profile = {"w8a8_batch4_int8_core": profile_call(pipe, "w8a8_batch4_int8_core", *call)}
         os.environ["TWEEDIEMIX_FLASH_INT8"] = "0"
         profile["w8a8_batch4_bf16_core"] = profile_call(pipe, "w8a8_batch4_bf16_core", *call)
     finally:
         os.environ.pop("TWEEDIEMIX_FLASH_INT8", None)
     return dict(runs=runs, expected_launches=expected, unet_gib=unet_gib, profile=profile,
-                syncs_per_call=syncs)
+                syncs_per_call=syncs, traced=traced)
 
 
 def count_syncs(pipe, ctx, pooled, idx) -> int:
-    """Synchronising CUDA operations in one fusion UNet call (cross-K/V
-    cache on), as PyTorch's sync debug mode warns of them."""
+    """Synchronising CUDA operations in one fusion UNet call as the sampler
+    makes it (a replay of its CUDA graph, captured by an earlier call of its
+    shape), as PyTorch's sync debug mode warns of them."""
     import warnings
 
     import torch
@@ -2438,14 +2468,14 @@ def count_syncs(pipe, ctx, pooled, idx) -> int:
     h, w = pipe.fusion_config.latent_hw
     x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
     with torch.inference_mode():
-        kv = pipe._kv_builder(ctx, idx)
+        pipe._unet_fn(x, 501, ctx, pooled, idx)
         torch.cuda.synchronize()
         mode = torch.cuda.get_sync_debug_mode()
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
-                pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv)
+                pipe._unet_fn(x, 501, ctx, pooled, idx)
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.synchronize()
@@ -3479,14 +3509,36 @@ def cli_train_multihost(base, root, sites) -> dict:
 
 
 def profile_call(pipe, label, ctx, pooled, idx) -> dict:
-    """One fusion UNet call (cross-K/V cache on), profiled by ``profile_fn``."""
+    """One fusion UNet call as the sampler makes it, profiled by
+    ``profile_fn``: a replay of the call shape's CUDA graph, the K/V built
+    inside it (``profile_fn``'s first, unprofiled call captures the graph
+    where none of these shapes and attention knobs is there yet)."""
     import torch
 
     h, w = pipe.fusion_config.latent_hw
     x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
     with torch.inference_mode():
-        kv = pipe._kv_builder(ctx, idx)
-        return profile_fn(label, lambda: pipe._unet_fn(x, 501, ctx, pooled, idx, cross_kv=kv))
+        return profile_fn(label, lambda: pipe._unet_fn(x, 501, ctx, pooled, idx))
+
+
+def traced_launches(call, kernels) -> dict:
+    """``call()`` under torch.profiler, device activity alone: the trace's
+    kernel events (``events``) and, of each kernel of ``kernels`` (names in
+    the source), its events (``kernels``), counted by
+    ``models/unet_graph.py::kernel_launches``. A CUDA graph's replay shows
+    each of its kernel nodes as an event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tweediemix_tpu_torch.models.unet_graph import kernel_launches
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return dict(events=len(names), kernels={k: kernel_launches(names, k) for k in kernels})
 
 
 def profile_fn(label, call) -> dict:

@@ -27,6 +27,13 @@ device's UNet replica and, as in the JAX package, without the cross-K/V
 cache, so a meshed W8A8 sample quantises the K/V projections the cache
 would have run in float.
 
+On a card the unsharded sampler's UNet calls go through CUDA graphs
+(``models/unet_graph.py``, ``unet_graphs``): one per call shape, captured
+at its first call and replayed after, the cross-attention K/V built inside
+the graph instead of a per-phase cache, so a call costs the host a few
+copies and one graph launch and no synchronisation. On the CPU, under
+autograd and over a mesh the calls stay eager.
+
 Numerics: the reference decodes in fp32. cuDNN would run fp32 convolutions
 in TF32 by default, so the pipeline turns TF32 off for matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and convolutions
@@ -53,6 +60,7 @@ from tweediemix_tpu_torch.models.unet2d import (
     UNetConfig,
     precompute_cross_kv,
 )
+from tweediemix_tpu_torch.models.unet_graph import UNetGraphs
 from tweediemix_tpu_torch.models.vae import (
     AutoencoderKL,
     VAEConfig,
@@ -98,6 +106,9 @@ class TweedieMixPipeline:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.unet = unet.to(self.device).eval()
+        # the UNet call of the unsharded sampler: a CUDA graph per call shape on a card
+        self.unet_graphs = UNetGraphs(self.unet)
+        self._time_ids_by_key: dict = {}  # (device, rows) -> time_ids [rows, 6]
         self.vae = vae.to(self.device).eval()
         self.text = text
         if text is not None:
@@ -246,15 +257,32 @@ class TweedieMixPipeline:
 
     # -- sampling ----------------------------------------------------------------
 
+    def _time_ids(self, rows: int, device) -> torch.Tensor:
+        """SDXL's size conditioning [rows, 6], built once per (device, rows):
+        a copy from host memory synchronises with the host."""
+        key = (device, rows)
+        if key not in self._time_ids_by_key:
+            cfg = self.fusion_config
+            self._time_ids_by_key[key] = torch.tensor(
+                [[cfg.height, cfg.width, 0, 0, cfg.height, cfg.width]],
+                dtype=torch.float32, device=device,
+            ).expand(rows, 6)
+        return self._time_ids_by_key[key]
+
     def _unet_fn(self, x, t, ctx, pooled, idx, cross_kv=None, unet=None):
-        cfg = self.fusion_config
-        time_ids = torch.tensor(
-            [[cfg.height, cfg.width, 0, 0, cfg.height, cfg.width]],
-            dtype=torch.float32, device=x.device,
-        ).expand(x.shape[0], 6)
+        """One UNet call. The pipeline's own call (no ``unet`` replica, no
+        ``cross_kv``) goes through ``unet_graphs``, which builds the K/V
+        inside its graph on a card and runs eagerly elsewhere."""
+        time_ids = self._time_ids(x.shape[0], x.device)
+        if unet is None and cross_kv is None:
+            return self.unet_graphs(x, t, ctx, pooled, time_ids, idx)
         return (unet or self.unet)(x, t, ctx, pooled, time_ids, idx, cross_kv=cross_kv)
 
     def _kv_builder(self, ctx_rows, idx):
+        """A phase's cross-attention K/V cache; None where the UNet call's
+        graph builds it (``UNetGraphs.engages``)."""
+        if self.unet_graphs.engages(ctx_rows):
+            return None
         return precompute_cross_kv(self.unet, ctx_rows, idx)
 
     @torch.inference_mode()

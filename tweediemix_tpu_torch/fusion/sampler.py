@@ -14,7 +14,9 @@
 
 ``x`` carries a leading seed axis [S, h, w, 4]; UNet row k*S+s pairs
 embedding row k with seed s. Each phase builds its cross-attention K/V
-cache once, outside its loop.
+cache once, outside its loop, where its ``kv_builder`` gives one (the
+pipeline's gives none on a card, where the UNet call's CUDA graph builds
+the K/V inside, ``models/unet_graph.py``).
 """
 
 from __future__ import annotations
@@ -131,7 +133,7 @@ class FusionSampler:
         self.decode_preview_fn = decode_preview_fn
         self.segment_fn = segment_fn
         # optional (ctx_rows, concept_idx) -> cross-attention K/V cache
-        # (models.unet2d.precompute_cross_kv), built once per phase
+        # (models.unet2d.precompute_cross_kv) or None, built once per phase
         self.kv_builder = kv_builder
         # wall seconds of each phase of the last run(), device work included
         self.phase_seconds: dict[str, float] = {}

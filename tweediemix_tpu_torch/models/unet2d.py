@@ -472,6 +472,14 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample, timestep, encoder_hidden_states, pooled_projections,
                 time_ids, concept_idx=None, cross_kv=None):
+        with span("unet", rows=sample.shape[0], graph="eager"):
+            return self.denoise(sample, timestep, encoder_hidden_states, pooled_projections,
+                                time_ids, concept_idx, cross_kv)
+
+    def denoise(self, sample, timestep, encoder_hidden_states, pooled_projections,
+                time_ids, concept_idx=None, cross_kv=None):
+        """The forward's body, without its ``unet`` span: what
+        ``models/unet_graph.py`` captures inside a span of its own."""
         cfg = self.config
         dtype = cfg.dtype
         b = sample.shape[0]
@@ -487,49 +495,48 @@ class UNet2DConditionModel(nn.Module):
             kv = None if cross_kv is None else cross_kv[name]
             return run(block.attentions[j], x, ctx, concept_idx, kv)
 
-        with span("unet", rows=b):
-            with span("unet.embed"):
-                if concept_idx is None:
-                    concept_idx = torch.zeros(b, dtype=torch.long, device=dev)
-                timestep = torch.as_tensor(timestep, device=dev).expand(b)
-                t_emb = timestep_embedding(timestep, cfg.block_out_channels[0])
-                temb = self.time_embedding(t_emb.to(dtype))
-                ids_emb = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
-                ids_emb = ids_emb.reshape(b, 6 * cfg.addition_time_embed_dim)
-                add_emb = torch.cat([pooled_projections, ids_emb.to(pooled_projections.dtype)],
-                                    dim=-1)
-                temb = temb + self.add_embedding(add_emb.to(dtype))
-                ctx = encoder_hidden_states.to(dtype)
-            x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+        with span("unet.embed"):
+            if concept_idx is None:
+                concept_idx = torch.zeros(b, dtype=torch.long, device=dev)
+            timestep = torch.as_tensor(timestep, device=dev).expand(b)
+            t_emb = timestep_embedding(timestep, cfg.block_out_channels[0])
+            temb = self.time_embedding(t_emb.to(dtype))
+            ids_emb = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
+            ids_emb = ids_emb.reshape(b, 6 * cfg.addition_time_embed_dim)
+            add_emb = torch.cat([pooled_projections, ids_emb.to(pooled_projections.dtype)],
+                                dim=-1)
+            temb = temb + self.add_embedding(add_emb.to(dtype))
+            ctx = encoder_hidden_states.to(dtype)
+        x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
 
-            res_stack = [x]
-            for level, block in enumerate(self.down_blocks):
-                with span(f"unet.down.{level}"):
-                    for j, resnet in enumerate(block.resnets):
-                        x = run(resnet, x, temb)
-                        if len(block.attentions):
-                            x = attend(block, j, f"down_blocks_{level}_attentions_{j}", x)
-                        res_stack.append(x)
-                    for sampler in block.downsamplers:
-                        x = sampler(x)
-                        res_stack.append(x)
+        res_stack = [x]
+        for level, block in enumerate(self.down_blocks):
+            with span(f"unet.down.{level}"):
+                for j, resnet in enumerate(block.resnets):
+                    x = run(resnet, x, temb)
+                    if len(block.attentions):
+                        x = attend(block, j, f"down_blocks_{level}_attentions_{j}", x)
+                    res_stack.append(x)
+                for sampler in block.downsamplers:
+                    x = sampler(x)
+                    res_stack.append(x)
 
-            with span("unet.mid"):
-                x = run(self.mid_block.resnets[0], x, temb)
-                x = attend(self.mid_block, 0, "mid_block_attentions_0", x)
-                x = run(self.mid_block.resnets[1], x, temb)
+        with span("unet.mid"):
+            x = run(self.mid_block.resnets[0], x, temb)
+            x = attend(self.mid_block, 0, "mid_block_attentions_0", x)
+            x = run(self.mid_block.resnets[1], x, temb)
 
-            for i, block in enumerate(self.up_blocks):
-                with span(f"unet.up.{i}"):
-                    for j, resnet in enumerate(block.resnets):
-                        x = run(resnet, torch.cat([x, res_stack.pop()], dim=1), temb)
-                        if len(block.attentions):
-                            x = attend(block, j, f"up_blocks_{i}_attentions_{j}", x)
-                    for sampler in block.upsamplers:
-                        x = sampler(x)
+        for i, block in enumerate(self.up_blocks):
+            with span(f"unet.up.{i}"):
+                for j, resnet in enumerate(block.resnets):
+                    x = run(resnet, torch.cat([x, res_stack.pop()], dim=1), temb)
+                    if len(block.attentions):
+                        x = attend(block, j, f"up_blocks_{i}_attentions_{j}", x)
+                for sampler in block.upsamplers:
+                    x = sampler(x)
 
-            x = self.conv_out(F.silu(self.conv_norm_out(x)))
-            return x.permute(0, 2, 3, 1).float()
+        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return x.permute(0, 2, 3, 1).float()
 
 
 _SITE_RENAMES = (

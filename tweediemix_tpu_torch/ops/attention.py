@@ -41,6 +41,15 @@ FLASH_MIN_SK = 1024
 # cap on the materialised [BH, Sq, Sk] fp32 score tensor of the math path
 SCORE_BYTES_CAP = 256 * 1024 * 1024
 ATTENTION_MODES = ("auto", "flash", "xla")  # TWEEDIEMIX_ATTENTION
+# every environment knob this module reads on a call
+KNOBS = ("TWEEDIEMIX_ATTENTION", "TWEEDIEMIX_FLASH_MIN_S", "TWEEDIEMIX_FLASH_INT8",
+         "TWEEDIEMIX_SHORT_ATTENTION", "TWEEDIEMIX_BF16_SCORES_MAX_SK")
+
+
+def dispatch_key() -> tuple:
+    """The values of ``KNOBS`` now. A recorded call (a CUDA graph) keeps the
+    kernels they chose at its recording, so it is keyed on them."""
+    return tuple(os.environ.get(k) for k in KNOBS)
 
 
 def flash_min_s() -> int:

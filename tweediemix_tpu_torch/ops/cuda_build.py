@@ -113,6 +113,21 @@ def build_library(name: str) -> Path:
     return out
 
 
+# the kernel wrappers that count their launches: {module.name: wrapper}
+LAUNCH_COUNTERS: dict = {}
+
+
+def counts_launches(fn, kernel: str) -> None:
+    """Give the wrapper ``fn`` its launch counter, ``fn.launches = 0``, and
+    list it in ``LAUNCH_COUNTERS`` with ``fn.kernel = kernel``: the
+    ``__global__`` function (its name in the source) that each counted call
+    launches once, by which a recorded CUDA graph's launches are counted
+    (``models/unet_graph.py``)."""
+    fn.launches = 0
+    fn.kernel = kernel
+    LAUNCH_COUNTERS[f"{fn.__module__}.{fn.__qualname__}"] = fn
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, compiled on first call."""

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from tweediemix_tpu_torch.ops.cuda_build import check_launch, load_library
+from tweediemix_tpu_torch.ops.cuda_build import check_launch, counts_launches, load_library
 
 HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30  # the TPU kernels' mask value
@@ -121,7 +121,7 @@ def flash_attention(
     return _launch_cuda(q, k, v, float(scale))
 
 
-flash_attention.launches = 0
+counts_launches(flash_attention, "flash_fwd_kernel")
 
 
 # -- the int8 attention core (W8A8 serving) -----------------------------------
@@ -284,7 +284,7 @@ def quantize_qkv_int8_fused(q, k, v, scale: float | None = None):
     return q8, k8, vt8, ws[3:]
 
 
-quantize_qkv_int8_fused.launches = 0
+counts_launches(quantize_qkv_int8_fused, "quantize_kernel")
 
 
 def flash_attention_int8_core(q8, k8, vt8, scales) -> torch.Tensor:
@@ -341,4 +341,4 @@ def flash_attention_int8(
     return flash_attention_int8_core(*quantize_qkv_int8_fused(q, k, v, scale))
 
 
-flash_attention_int8.launches = 0
+counts_launches(flash_attention_int8, "flash_int8_wgmma_kernel")

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tweediemix_tpu_torch.ops.cuda_build import check_launch, load_library
+from tweediemix_tpu_torch.ops.cuda_build import check_launch, counts_launches, load_library
 from tweediemix_tpu_torch.utils import profiling
 
 QUANT_MODES = ("int8", "int8_conv")
@@ -244,7 +244,7 @@ def w8a8_matmul_cuda(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     return y
 
 
-w8a8_matmul_cuda.launches = 0
+counts_launches(w8a8_matmul_cuda, "w8a8_int8_gemm_kernel")
 
 
 def w8a8_conv(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,

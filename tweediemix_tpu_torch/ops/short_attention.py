@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from tweediemix_tpu_torch.ops.cuda_build import check_launch, load_library
+from tweediemix_tpu_torch.ops.cuda_build import check_launch, counts_launches, load_library
 
 MAX_S = 32
 HEAD_DIMS = (32, 64, 128)
@@ -227,4 +227,4 @@ def short_seq_attention(q, k, v, num_heads: int, scale: float | None = None) -> 
     return _launch_cuda(q, k, v, num_heads, float(scale))
 
 
-short_seq_attention.launches = 0
+counts_launches(short_seq_attention, "short_attn_kernel")

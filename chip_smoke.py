@@ -44,8 +44,6 @@ JAX or of the JAX package. Phases:
    graph replays) and the counter must both read 5250; then two seeds unsharded and over a
    2-entry mesh on ``cuda:0`` (``parallel/mesh.py``: every UNet call's rows
    split in two, so twice the launches), the latents held to each other;
-   then one batch-4 and one batch-2 UNet
-   call under torch.profiler (device time by kernel class, idle share);
    then the CLI path: a full-width SDXL checkpoint of seeded random weights
    in the diffusers layout (its parameter counts held to the published
    checkpoint's), synthetic 49408-entry tokenizers and three concept deltas
@@ -70,14 +68,13 @@ JAX or of the JAX package. Phases:
    232,313,216 parameters held) and a synthetic 30522-line ``vocab.txt``
    are written, the fusion CLI runs with ``--detector dino`` and ``auto``
    (launches counted, one PNG each), the segment CLI with ``dino``, one
-   ``DinoDetector`` call is timed by stage and profiled, and a Swin-B
-   block, an encoder layer and a decoder layer are held to fp32 on the
-   CPU; then, from the same directory, the training CLI
-   (``phase_cli_train``): instance PNGs, class images sampled into an empty
+   ``DinoDetector`` call is timed by stage, and a Swin-B block, an
+   encoder layer and a decoder layer are held to fp32 on the CPU; then,
+   from the same directory, the training CLI (``phase_cli_train``): instance PNGs, class images sampled into an empty
    directory, 10 steps at 512² with prior preservation, a modifier token and
    remat (saving at 5), then 3 steps with ``--train_text_encoder
    --use_8bit_adam``, each run's launches per step counted, its trainable
-   leaves moved and frozen ones bit-equal, one step profiled, then the
+   leaves moved and frozen ones bit-equal, then the
    first run's flags up to its first save as one ``--multihost`` rank
    (NCCL at world size 1: every gradient ``all_reduce`` through NCCL), its
    delta held to the plain run's, and the trained delta sampled by the
@@ -88,14 +85,15 @@ JAX or of the JAX package. Phases:
    request at a new seed, a "||" pair at two seeds, an empty line), each
    request's latency, warm flag and flash launches; the fusion CLI with
    ``--profile`` cut to 4 steps (``phase_cli_profile``: phase timings, a
-   Chrome trace whose flash-kernel events equal the expected launches,
-   classified by ``utils/profiling.py``); CLIP-T and CLIP-I of the served
-   PNGs against the training images from a CLIP ViT-L/14-width directory of
-   random weights (``phase_cli_evaluate``: the evaluate CLI, then the card's
-   fp32 scores held to the CPU's); the demo's predict function on the SAM
-   and OWL-ViT checkpoints (``phase_app``: its overlay equal to
-   ``draw_image`` over ``LangSAM.predict``); the directory is deleted (the
-   fusion PNG is kept for phase 7);
+   Chrome trace whose flash-kernel events, counted by kernel name, equal
+   the expected launches, and spans on the trace's clock); CLIP-T and
+   CLIP-I of the served PNGs against the training images from a CLIP
+   ViT-L/14-width directory of random weights (``phase_cli_evaluate``: the
+   evaluate CLI, then the card's fp32 scores held to the CPU's); the
+   demo's predict function on the SAM and OWL-ViT checkpoints
+   (``phase_app``: its overlay equal to ``draw_image`` over
+   ``LangSAM.predict``); the directory is deleted (the fusion PNG is kept
+   for phase 7);
 5. W8A8 main path: the same sample with ``quant="int8"`` at four seeds,
    static per-site activation scales calibrated on the card for these
    weights by ``tools/calibrate_quant.py::calibrate_unet`` (timesteps
@@ -105,8 +103,7 @@ JAX or of the JAX package. Phases:
    and the bf16 kernel's held at 0, the W8A8 linear kernels' at 442 a UNet
    call, and the same counts from the kernel events of a third, traced
    call and from the counters over it; no synchronising operation in a
-   replayed UNet call, then one batch-4 call
-   profiled with the int8 core on and off;
+   replayed UNet call;
 6. video: the short-sequence (frame-axis) kernel against its plain version
    at the video path's five shapes (as views of a merged qkv and
    contiguous) and its edge cases (each with a sentinel around the
@@ -120,8 +117,7 @@ JAX or of the JAX package. Phases:
    through ``I2VPipeline.generate``, one warm and one timed clip with both
    kernels' launch counts checked; two clips unsharded and over the 2-entry
    mesh (one clip per shard), the loop cut to 10 steps, launches counted
-   and the latents held to each other; then one batch-2 UNet call profiled
-   with the knob on and off;
+   and the latents held to each other;
 7. the video CLI: a full-width I2VGen-XL directory of seeded random weights
    in the diffusers layout (its parameter counts held, fp16 variant files,
    the VAE in fp32) is written under ``build/`` and
@@ -878,14 +874,8 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
     decode_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     log(f"decode peak above the resident weights and latent: {decode_gib:.3f} GiB")
-    fcfg = pipe.fusion_config
-    calls = {"fused_batch4": (embeds.concept_ctx, embeds.concept_pooled,
-                              torch.arange(fcfg.num_concepts + 1, device="cuda")),
-             "joint_batch2": (embeds.joint_ctx, embeds.joint_pooled,
-                              torch.zeros(2, dtype=torch.long, device="cuda"))}
-    profile = {label: profile_call(pipe, label, *call) for label, call in calls.items()}
-    return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib, profile=profile,
-                mesh=mesh, traced=traced)
+    return dict(runs=runs, expected_launches=expected, decode_peak_gib=decode_gib, mesh=mesh,
+                traced=traced)
 
 
 def two_entry_mesh():
@@ -1096,7 +1086,6 @@ def phase_cli(keep_png: str) -> dict:
     import shutil
     import tempfile
 
-    import numpy as np
     import torch
 
     from tweediemix_tpu_torch.cli import fusion_sampling
@@ -1351,22 +1340,18 @@ def phase_cli_profile(root, argv) -> dict:
     one jumping step, so that the 4-step schedule is valid; a 50-step trace
     is hundreds of MB):
     ``phase_timings.json`` holds ``sample_1_seeds``, the Chrome trace holds
-    one flash-kernel event per expected launch, and the profiling module's
-    classifier puts them under flash_attention. ``spans.json`` holds one
-    ``request`` span and a ``unet`` span per sampler step, on the trace's
+    one flash-kernel event per expected launch, counted by the kernel's
+    name (``models/unet_graph.py::kernel_launches``). ``spans.json`` holds
+    one ``request`` span and a ``unet`` span per sampler step, on the trace's
     clock (``span_kernel_leads``)."""
     import torch
 
     from tweediemix_tpu_torch.cli import fusion_sampling
     from tweediemix_tpu_torch.fusion.sampler import FusionConfig
     from tweediemix_tpu_torch.models.unet2d import UNetConfig
+    from tweediemix_tpu_torch.models.unet_graph import kernel_launches
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention
-    from tweediemix_tpu_torch.utils.profiling import (
-        SPANS_FILE,
-        TRACE_FILE,
-        chrome_trace_kernels,
-        device_breakdown,
-    )
+    from tweediemix_tpu_torch.utils.profiling import SPANS_FILE, TRACE_FILE
 
     cut = MASK_DIR_FUSION
     fcfg = FusionConfig(**dict(CLI_FUSION, **cut))
@@ -1386,10 +1371,10 @@ def phase_cli_profile(root, argv) -> dict:
     trace_path = os.path.join(prof_dir, TRACE_FILE)
     if "sample_1_seeds" not in phases or not os.path.exists(trace_path):
         fail(f"--profile wrote {sorted(os.listdir(prof_dir))}, phases {phases}")
-    kernels = chrome_trace_kernels(trace_path)
-    named = sum("flash_fwd_kernel" in n for n, *_ in kernels)
-    breakdown = device_breakdown(kernels, phases["sample_1_seeds"] * 1e3)
-    classified = breakdown["by_class_count"].get("flash_attention", 0)
+    with open(trace_path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    named = kernel_launches(kernels, "flash_fwd_kernel")
     with open(os.path.join(prof_dir, SPANS_FILE)) as f:
         kept = json.load(f)
     clock = span_kernel_leads(trace_path, kept)
@@ -1398,15 +1383,13 @@ def phase_cli_profile(root, argv) -> dict:
                  timings=json.loads(text.split("timings: ", 1)[1].splitlines()[0]),
                  trace_bytes=os.path.getsize(trace_path), kernel_events=len(kernels),
                  expected_launches=expected, launches=launches, trace_flash_events=named,
-                 trace_flash_classified=classified, breakdown=breakdown,
                  spans=len(names), unet_spans=names.count("unet"),
                  step_spans=names.count("fusion.step"), syncs_per_step=[
                      s["syncs"] for s in kept["spans"] if s["name"] == "fusion.step"],
                  clock=clock)
     log(f"cli profile: {json.dumps(stats)}")
-    if named != expected or classified != expected:
-        fail(f"the trace holds {named} flash-kernel events, {classified} classified as "
-             f"flash_attention; expected {expected}")
+    if named != expected:
+        fail(f"the trace holds {named} flash-kernel events; expected {expected}")
     if names.count("request") != 1 or not names.count("unet") or (
             names.count("unet") != names.count("fusion.step")):
         fail(f"spans.json holds {names.count('request')} request spans, "
@@ -2176,8 +2159,7 @@ def dino_layers(sam_path, pth):
     the host clock), split into backbone, backbone with the level
     projections, text, encoder and decoder, with its peak memory; then one
     Swin-B stage-3 block (a shifted one), one encoder layer and one decoder
-    layer held to fp32 on the CPU within ``SEG_REL_TOL`` of their max; one
-    call under torch.profiler (device time by kernel class, idle share).
+    layer held to fp32 on the CPU within ``SEG_REL_TOL`` of their max.
     Returns (layers, blocks)."""
     import copy
 
@@ -2233,8 +2215,6 @@ def dino_layers(sam_path, pth):
             weights_gib=weights / 2**30, peak_gib=peak / 2**30, call_gib=(peak - weights) / 2**30,
         )
         log(f"dino layers: {json.dumps(layers)}")
-    layers["profile"] = profile_fn("dino detector call", lambda: det(image, "a cat"))
-    with torch.inference_mode():
         n = vision.shape[1]
         refs = model.geometry(shapes, vision.device)["refs"][None, :, None, :].expand(1, n, len(shapes), 2)
         box = torch.sigmoid(torch.randn((1, cfg.num_queries, 4), generator=gen, device="cuda"))
@@ -2446,13 +2426,10 @@ def phase_w8a8_main_path() -> dict:
         log(f"W8A8 main path: {syncs} synchronising CUDA operations in one replayed UNet call")
         if syncs != 0:
             fail(f"W8A8 main path: {syncs} host syncs in one replayed UNet call, expected 0")
-        profile = {"w8a8_batch4_int8_core": profile_call(pipe, "w8a8_batch4_int8_core", *call)}
-        os.environ["TWEEDIEMIX_FLASH_INT8"] = "0"
-        profile["w8a8_batch4_bf16_core"] = profile_call(pipe, "w8a8_batch4_bf16_core", *call)
     finally:
         os.environ.pop("TWEEDIEMIX_FLASH_INT8", None)
-    return dict(runs=runs, expected_launches=expected, unet_gib=unet_gib, profile=profile,
-                syncs_per_call=syncs, traced=traced)
+    return dict(runs=runs, expected_launches=expected, unet_gib=unet_gib, syncs_per_call=syncs,
+                traced=traced)
 
 
 def count_syncs(pipe, ctx, pooled, idx) -> int:
@@ -2738,11 +2715,10 @@ def phase_reference_video() -> dict:
 
 def phase_video_main_path() -> dict:
     """I2VGen-XL image-to-video at full width: one warm and one timed clip
-    with the short-attention knob on, then a batch-2 UNet call profiled
-    with the knob on and off."""
+    with the short-attention knob on, then two clips over a mesh."""
     import torch
 
-    from tweediemix_tpu_torch.models.unet3d import UNet3DConfig, precompute_video_cache
+    from tweediemix_tpu_torch.models.unet3d import UNet3DConfig
     from tweediemix_tpu_torch.models.vae import VAEConfig
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
     from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
@@ -2796,28 +2772,9 @@ def phase_video_main_path() -> dict:
                      f"expected {expected} and 0 int8")
             runs.append(stats)
         mesh = mesh_video(pipe, (text, uncond, image, emb), sites)
-
-        # one batch-2 UNet call of the loop (cache on), knob on and off
-        h, w = vcfg.latent_hw
-        ctx2 = torch.cat([uncond, text])
-        il2 = 0.3 * torch.randn((2, vcfg.num_frames, h, w, 4), device="cuda")
-        emb2 = torch.cat([torch.zeros_like(emb), emb])
-        fps2 = torch.full((2,), float(vcfg.fps), device="cuda")
-        x2 = torch.randn((1, vcfg.num_frames, h, w, 4), device="cuda").repeat(2, 1, 1, 1, 1)
-        with torch.inference_mode():
-            cctx, cil, kv = precompute_video_cache(pipe.unet, ctx2, il2, emb2, fps2)
-
-        def call():
-            pipe.unet(x2, 501, ctx2, il2, emb2, fps2, False, False, vcfg.interp_ratio,
-                      cached_ctx=cctx, cached_il=cil, cross_kv=kv)
-
-        profile = {"video_batch2_short_on": profile_fn("video_batch2_short_on", call)}
-        os.environ["TWEEDIEMIX_SHORT_ATTENTION"] = "0"
-        profile["video_batch2_short_off"] = profile_fn("video_batch2_short_off", call)
     finally:
         os.environ.pop("TWEEDIEMIX_SHORT_ATTENTION", None)
-    return dict(runs=runs, expected_launches=expected, unet_params=n_params, profile=profile,
-                mesh=mesh)
+    return dict(runs=runs, expected_launches=expected, unet_params=n_params, mesh=mesh)
 
 
 def mesh_video(pipe, inputs, sites) -> dict:
@@ -3089,7 +3046,6 @@ TRAIN_RATIO_TOL = 3.0
 TRAIN_STEPS, TRAIN_SAVE_STEPS, TRAIN_TE_STEPS = 10, 5, 3
 TRAIN_CLASS_IMAGES = 2
 TRAIN_FUSION = dict(n_timesteps=4, t_cond=0.5, resampling_steps=0, jumping_steps=1)
-TRAIN_PROFILE_STEP = 6  # the micro step run under torch.profiler
 
 
 def phase_kernel_grad() -> dict:
@@ -3268,7 +3224,6 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
     concept."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tweediemix_tpu_torch.cli import fusion_sampling, train
     from tweediemix_tpu_torch.concepts.delta import is_cross_kv, load_reference_delta
@@ -3278,7 +3233,6 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention
     from tweediemix_tpu_torch.training import trainer
     from tweediemix_tpu_torch.utils.image import read_png, write_png
-    from tweediemix_tpu_torch.utils.profiling import device_breakdown, profiler_kernels
 
     inst, cls = os.path.join(root, "train_instance"), os.path.join(root, "train_class")
     os.makedirs(inst)
@@ -3306,25 +3260,12 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
 
             def keep(unet, te1, te2, *args, **kw):
                 # every leaf's value before training, on the host (so the
-                # CLI's peak memory is its own), and one step profiled
+                # CLI's peak memory is its own)
                 named = {f"{k}/{n}": p for k, m in (("unet", unet), ("te1", te1), ("te2", te2))
                          for n, p in m.named_parameters()}
                 kept["params"] = named
                 kept["before"] = {n: p.detach().to("cpu", copy=True) for n, p in named.items()}
-                step = make_step(unet, te1, te2, *args, **kw)
-                calls = []
-
-                def profiled(*a, **k):
-                    calls.append(1)
-                    if len(calls) != TRAIN_PROFILE_STEP:
-                        return step(*a, **k)
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                        out = step(*a, **k)
-                        torch.cuda.synchronize()
-                    kept["profile"] = prof
-                    return out
-
-                return profiled
+                return make_step(unet, te1, te2, *args, **kw)
 
             trainer.make_full_train_step = keep
             torch.cuda.reset_peak_memory_stats()
@@ -3362,11 +3303,6 @@ def phase_cli_train(root, fusion_argv, deltas) -> dict:
                          frozen_changed=frozen_changed,
                          delta_bytes=os.path.getsize(delta_path), files=sorted(os.listdir(out)))
             log(f"cli train {label}: {json.dumps(stats)}")
-            if "profile" in kept:
-                stats["profile"] = device_breakdown(profiler_kernels(kept["profile"]),
-                                                    parsed["timings"]["step_s"] * 1e3)
-                log(f"profile train step {label} (step {TRAIN_PROFILE_STEP}, idle against the "
-                    f"median s/step): {json.dumps(stats['profile'])}")
             del kept
             torch.cuda.empty_cache()
             if per_step != 2 * sites or launches != class_launches + 2 * sites * steps:
@@ -3508,19 +3444,6 @@ def cli_train_multihost(base, root, sites) -> dict:
     return stats
 
 
-def profile_call(pipe, label, ctx, pooled, idx) -> dict:
-    """One fusion UNet call as the sampler makes it, profiled by
-    ``profile_fn``: a replay of the call shape's CUDA graph, the K/V built
-    inside it (``profile_fn``'s first, unprofiled call captures the graph
-    where none of these shapes and attention knobs is there yet)."""
-    import torch
-
-    h, w = pipe.fusion_config.latent_hw
-    x = torch.randn((idx.shape[0], h, w, 4), device="cuda")
-    with torch.inference_mode():
-        return profile_fn(label, lambda: pipe._unet_fn(x, 501, ctx, pooled, idx))
-
-
 def traced_launches(call, kernels) -> dict:
     """``call()`` under torch.profiler, device activity alone: the trace's
     kernel events (``events``) and, of each kernel of ``kernels`` (names in
@@ -3539,34 +3462,6 @@ def traced_launches(call, kernels) -> dict:
     names = [e.name() for e in prof.profiler.kineto_results.events()
              if e.device_type() == DeviceType.CUDA]
     return dict(events=len(names), kernels={k: kernel_launches(names, k) for k in kernels})
-
-
-def profile_fn(label, call) -> dict:
-    """``call()`` under torch.profiler: device time by kernel class and the
-    top kernels; the device's idle share is taken against the mean wall time
-    of the same call run without the profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from tweediemix_tpu_torch.utils.profiling import device_breakdown, profiler_kernels
-
-    with torch.inference_mode():
-        call()
-        torch.cuda.synchronize()
-        # wall time without the profiler, whose host overhead inflates it
-        t0 = time.perf_counter()
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    out = dict(wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, **device_breakdown(profiler_kernels(prof), wall_ms))
-    log(f"profile {label}: {json.dumps(out)}")
-    return out
 
 
 def main() -> None:

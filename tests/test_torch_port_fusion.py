@@ -174,17 +174,19 @@ def micro_trajectory():
 
 @pytest.mark.parametrize("kv_cache", [False, True])
 def test_micro_trajectory_matches_jax(micro_trajectory, kv_cache):
+    """``kv_cache``: the port's UNet call builds the K/V with
+    ``precompute_cross_kv`` per call, as the pipeline's runner does; else
+    the modules project it."""
     port, kw, embeds, fg, x_init, want = micro_trajectory
     fcfg = port_sampler.FusionConfig(**kw)
     hw8 = kw["height"]
     tids = torch.tensor([[float(hw8), hw8, 0, 0, hw8, hw8]])
 
-    def unet_fn(x, t, ctx, pooled, idx, cross_kv=None):
-        return port(x, t, ctx, pooled, tids.expand(x.shape[0], 6), idx, cross_kv=cross_kv)
+    def unet_fn(x, t, ctx, pooled, idx):
+        kv = port_unet2d.precompute_cross_kv(port, ctx, idx) if kv_cache else None
+        return port(x, t, ctx, pooled, tids.expand(x.shape[0], 6), idx, cross_kv=kv)
 
-    kv_builder = (lambda ctx, idx: port_unet2d.precompute_cross_kv(port, ctx, idx)) if kv_cache else None
-    sampler = port_sampler.FusionSampler(port_ddim.DDIMTable.create(n_steps=4), fcfg, unet_fn,
-                                         kv_builder=kv_builder)
+    sampler = port_sampler.FusionSampler(port_ddim.DDIMTable.create(n_steps=4), fcfg, unet_fn)
     assert fcfg.unet_calls() == 3 + 1 + 1 + 2  # prologue, joint, jumping, fused
     with torch.no_grad():
         got = sampler.run(port_sampler.TextEmbeds(*map(torch.from_numpy, embeds)),
@@ -195,8 +197,9 @@ def test_micro_trajectory_matches_jax(micro_trajectory, kv_cache):
 
 def test_pipeline_sample_and_decode_match_jax():
     """The port's pipeline.sample + decode_final (micro UNet with 4 concept
-    slots, tiny VAE, N=3, cross-K/V cache on) against the JAX sampler and
-    pipeline decode from the same x_init."""
+    slots, tiny VAE, N=3, the K/V built per call by the pipeline's runner)
+    against the JAX sampler (its per-phase cross-K/V cache on) and pipeline
+    decode from the same x_init."""
     n, hw = 3, 8
     model, params, port_unet = _unet_pair(dict(concept_slots=n + 1), seed=5, hw=hw, ctx_len=6)
     vae = jax_vae.AutoencoderKL(jax_vae.VAEConfig.tiny())

@@ -15,6 +15,7 @@ PNGs within one 8-bit level of the unsharded run's, for the same reason.
 JAX is imported inside the tests only.
 """
 
+import inspect
 import io
 import json
 import os
@@ -221,10 +222,12 @@ def test_concept_sharded_unet_fn_matches_jax(n_dev):
 
 
 def test_meshed_w8a8_unet_call_equals_jax_meshed_not_the_cached_call(monkeypatch):
-    """Under ``quant`` the cross-K/V cache projects a non-stacked K/V (the
-    LoRA mode's) in float while the in-module path quantises it. The meshed sampler has no cache (as in
-    the JAX package), so a meshed W8A8 call equals the JAX package's meshed
-    call, int8 K/V sites included, and not the port's cached call. The int8
+    """Under ``quant`` ``precompute_cross_kv`` projects a non-stacked K/V
+    (the LoRA mode's) in float while the in-module path quantises it. The
+    meshed sampler's replicas project it in their modules (as in the JAX
+    package), so a meshed W8A8 call equals the JAX package's meshed call,
+    int8 K/V sites included, and not the port's unsharded call, whose runner
+    builds the K/V with ``precompute_cross_kv``. The int8
     sites are teacher-forced as in ``test_torch_port_quant.py``: each
     shard's site gets its rows of the JAX site's input (the JAX call runs
     the padded batch at once, the port one shard after another)."""
@@ -404,7 +407,11 @@ def test_pipeline_mesh_sampler_is_kept_per_mesh_and_rejects_zero():
     one = pipe.sampler_for(1)
     two = pipe.sampler_for(2)
     assert one is pipe.sampler and two is pipe.sampler_for(2) and two is not one
-    assert two.kv_builder is None and one.kv_builder is not None
+    # the unsharded sampler calls the pipeline's runner; the meshed one each
+    # replica's forward, the K/V projected in its modules
+    assert one.unet_fn == pipe._unet_fn
+    fns = inspect.getclosurevars(two.unet_fn).nonlocals["fns"]
+    assert [(f.func, f.keywords) for f in fns] == [(pipe._unet_fn, {"unet": pipe.unet})] * 2
     assert two.segment_fn is one.segment_fn
     with pytest.raises(ValueError, match="at least 1"):
         pipe.sampler_for(0)

@@ -517,9 +517,10 @@ def test_precompute_cross_kv_keeps_the_float_projection_under_quant():
 
 def test_quantised_micro_trajectory_matches_jax(monkeypatch):
     """The 4-step micro fusion trajectory (prologue resampling, joint step,
-    jumping, masked fusion) with a W8A8 UNet, two seeds and the cross-K/V
-    cache, through the JAX sampler run eagerly (so its int8 sites can be
-    recorded) and the port's sampler."""
+    jumping, masked fusion) with a W8A8 UNet and two seeds, through the JAX
+    sampler run eagerly with its cross-K/V cache (so its int8 sites can be
+    recorded) and the port's sampler, whose UNet call builds the float K/V
+    per call, as the pipeline's runner does."""
     n, hw = 2, 8
     kw = dict(concept_slots=n + 1, quant="int8")
     jcfg = jax_unet2d.UNetConfig.micro(**kw)
@@ -555,13 +556,12 @@ def test_quantised_micro_trajectory_matches_jax(monkeypatch):
         want = sampler.run(jax_sampler.TextEmbeds(*embeds), jax.random.PRNGKey(0), fg_masks=fg,
                            num_seeds=2, x_init=jnp.asarray(x_init))
 
-    def port_unet(x, t, ctx, pooled, idx, cross_kv=None):
+    def port_unet(x, t, ctx, pooled, idx):
         return port(x, t, ctx, pooled, torch.from_numpy(tids).expand(x.shape[0], 6), idx,
-                    cross_kv=cross_kv)
+                    cross_kv=port_unet2d.precompute_cross_kv(port, ctx, idx))
 
     port_s = port_sampler.FusionSampler(
-        port_ddim.DDIMTable.create(n_steps=4), port_sampler.FusionConfig(**fkw), port_unet,
-        kv_builder=lambda ctx, idx: port_unet2d.precompute_cross_kv(port, ctx, idx))
+        port_ddim.DDIMTable.create(n_steps=4), port_sampler.FusionConfig(**fkw), port_unet)
     with forced_port_sites(monkeypatch, recorded), torch.no_grad():
         got = port_s.run(port_sampler.TextEmbeds(*map(torch.from_numpy, embeds)),
                          fg_masks=torch.from_numpy(fg), num_seeds=2,

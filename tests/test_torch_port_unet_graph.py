@@ -1,12 +1,15 @@
 """The fusion pipeline's UNet call through CUDA graphs
 (``models/unet_graph.py``), without JAX.
 
-On the CPU: the runner takes the eager forward (on the CPU, under autograd,
-and for a mesh replica), its ``unet`` span says ``graph="eager"``, it
-captures nothing and touches no kernel counter, and ``_unet_fn`` builds
-``time_ids`` once per (device, rows); the graph key holds every knob of
-``ops/attention.py``, every counted wrapper names a kernel of ``csrc/``, and
-the kernel names a graph's nodes give are counted by that name.
+On the CPU: the runner runs its body eagerly (on the CPU and under
+autograd; a mesh replica's call takes its forward) and equals the
+forward, its ``unet`` span says ``graph="eager"``, it captures nothing and
+touches no kernel counter; its body is the forward with the K/V of
+``precompute_cross_kv``, which under W8A8 is not the in-module projection;
+``_unet_fn`` builds ``time_ids`` once per (device, rows); the graph key
+holds every knob of ``ops/attention.py``, every counted wrapper names a
+kernel of ``csrc/``, and the kernel names a graph's nodes give are counted
+by that name.
 
 On the card (``cuda`` marker, skipped elsewhere), a small SDXL-shaped UNet
 (stacked concept K/V, dh 64, the level of 256 tokens routed to the flash
@@ -110,10 +113,30 @@ def test_the_runner_is_the_eager_forward_on_the_cpu_under_grad_and_for_a_mesh_re
     assert _launches() == before
     g = pipe.unet_graphs
     assert (g.graphs, g.captures, g.replays) == ({}, 0, 0)
-    # the sampler keeps its per-phase K/V cache off the card
-    assert set(pipe._kv_builder(ctx, idx)) == {
-        "down_blocks_1_attentions_0", "mid_block_attentions_0", "up_blocks_0_attentions_0",
-        "up_blocks_0_attentions_1"}
+
+
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["float", "w8a8"])
+def test_the_runner_runs_one_body_eager_and_captured(quant):
+    """Eager, the runner computes what it captures on a card: the forward
+    with the K/V of ``precompute_cross_kv``, which projects a non-stacked
+    K/V in float even under W8A8, where the modules' own projection
+    quantises it."""
+    torch.manual_seed(0)
+    unet = UNet2DConditionModel(UNetConfig.micro(quant=quant), device="cpu").eval()
+    gen = torch.Generator().manual_seed(4)
+    x, ctx = torch.randn((2, 8, 8, 4), generator=gen), torch.randn((2, 5, 32), generator=gen)
+    pooled, idx = torch.randn((2, 32), generator=gen), torch.zeros(2, dtype=torch.long)
+    time_ids = torch.tensor([[64.0, 64.0, 0.0, 0.0, 64.0, 64.0]]).expand(2, 6)
+    with torch.inference_mode():
+        got = UNetGraphs(unet)(x, 501, ctx, pooled, time_ids, idx)
+        body = unet(x, 501, ctx, pooled, time_ids, idx,
+                    cross_kv=precompute_cross_kv(unet, ctx, idx))
+        in_module = unet(x, 501, ctx, pooled, time_ids, idx)
+    assert torch.equal(got, body)
+    if quant:
+        assert _rel_l2(in_module, body) > 1e-4
+    else:
+        assert _rel_l2(in_module, body) <= 1e-6
 
 
 @pytest.mark.parametrize("grad,card,engaged", [

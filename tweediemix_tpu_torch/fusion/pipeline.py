@@ -19,20 +19,20 @@ the pipeline also runs from a UNet and a VAE that already hold their
 weights (``from_random_weights``, or converted JAX trees) and precomputed
 text embeddings.
 
+The unsharded sampler's UNet call is ``unet_graphs``
+(``models/unet_graph.py``): it builds the cross-attention K/V from each
+call's context and runs the forward's body on it. On a card, with autograd
+off, that body goes through CUDA graphs, one per call shape, captured at
+its first call and replayed after, so a call costs the host a few copies
+and one graph launch and no synchronisation; elsewhere it runs eagerly.
+
 ``sample(..., mesh_devices=n)`` shards every UNet forward's rows over a
 one-axis mesh (``parallel/mesh.py``): ``n`` devices (``cuda:0`` ..
 ``cuda:n-1``; on the CPU, the CPU n times) or a ``Mesh``, as the JAX
-package's ``sample`` does. The meshed sampler runs each shard on its
-device's UNet replica and, as in the JAX package, without the cross-K/V
-cache, so a meshed W8A8 sample quantises the K/V projections the cache
-would have run in float.
-
-On a card the unsharded sampler's UNet calls go through CUDA graphs
-(``models/unet_graph.py``, ``unet_graphs``): one per call shape, captured
-at its first call and replayed after, the cross-attention K/V built inside
-the graph instead of a per-phase cache, so a call costs the host a few
-copies and one graph launch and no synchronisation. On the CPU, under
-autograd and over a mesh the calls stay eager.
+package's ``sample`` does. The meshed sampler runs each shard eagerly on
+its device's UNet replica, whose modules project the K/V themselves, as
+the JAX package's meshed call does: a meshed W8A8 sample quantises the K/V
+projections that the unsharded call runs in float.
 
 Numerics: the reference decodes in fp32. cuDNN would run fp32 convolutions
 in TF32 by default, so the pipeline turns TF32 off for matmuls
@@ -55,11 +55,7 @@ from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.fusion.sampler import FusionConfig, FusionSampler, TextEmbeds
 from tweediemix_tpu_torch.models.clip import DualTextEncoder
 from tweediemix_tpu_torch.models.convert import load_unet
-from tweediemix_tpu_torch.models.unet2d import (
-    UNet2DConditionModel,
-    UNetConfig,
-    precompute_cross_kv,
-)
+from tweediemix_tpu_torch.models.unet2d import UNet2DConditionModel, UNetConfig
 from tweediemix_tpu_torch.models.unet_graph import UNetGraphs
 from tweediemix_tpu_torch.models.vae import (
     AutoencoderKL,
@@ -121,7 +117,6 @@ class TweedieMixPipeline:
         self.sampler = FusionSampler(
             self.table, fusion_config, self._unet_fn,
             decode_preview_fn=self.decode_preview, segment_fn=segment_fn,
-            kv_builder=self._kv_builder,
         )
         # samplers by mesh (1: unsharded, the one built here); ``sampler``
         # is the one the last sample() ran
@@ -269,21 +264,14 @@ class TweedieMixPipeline:
             ).expand(rows, 6)
         return self._time_ids_by_key[key]
 
-    def _unet_fn(self, x, t, ctx, pooled, idx, cross_kv=None, unet=None):
-        """One UNet call. The pipeline's own call (no ``unet`` replica, no
-        ``cross_kv``) goes through ``unet_graphs``, which builds the K/V
-        inside its graph on a card and runs eagerly elsewhere."""
+    def _unet_fn(self, x, t, ctx, pooled, idx, unet=None):
+        """One UNet call: the pipeline's own through ``unet_graphs``, a mesh
+        replica's (``unet``) through its forward, the K/V projected in the
+        modules."""
         time_ids = self._time_ids(x.shape[0], x.device)
-        if unet is None and cross_kv is None:
+        if unet is None:
             return self.unet_graphs(x, t, ctx, pooled, time_ids, idx)
-        return (unet or self.unet)(x, t, ctx, pooled, time_ids, idx, cross_kv=cross_kv)
-
-    def _kv_builder(self, ctx_rows, idx):
-        """A phase's cross-attention K/V cache; None where the UNet call's
-        graph builds it (``UNetGraphs.engages``)."""
-        if self.unet_graphs.engages(ctx_rows):
-            return None
-        return precompute_cross_kv(self.unet, ctx_rows, idx)
+        return unet(x, t, ctx, pooled, time_ids, idx)
 
     @torch.inference_mode()
     def decode_preview(self, x0):
@@ -298,8 +286,8 @@ class TweedieMixPipeline:
     def sampler_for(self, mesh_devices=1) -> FusionSampler:
         """The sampler for ``mesh_devices`` (an int or a ``Mesh``), built at
         its first use and kept: over a mesh, ``seed_sharded_unet_fn`` on one
-        UNet replica per device and no cross-K/V cache (the sharded call
-        owns its row layout, as in the JAX package)."""
+        UNet replica per device (the sharded call owns its row layout, as in
+        the JAX package)."""
         if mesh_devices == 1:
             return self._samplers[1]
         key = mesh_devices

@@ -13,10 +13,7 @@
   The final step returns the Tweedie itself.
 
 ``x`` carries a leading seed axis [S, h, w, 4]; UNet row k*S+s pairs
-embedding row k with seed s. Each phase builds its cross-attention K/V
-cache once, outside its loop, where its ``kv_builder`` gives one (the
-pipeline's gives none on a card, where the UNet call's CUDA graph builds
-the K/V inside, ``models/unet_graph.py``).
+embedding row k with seed s.
 """
 
 from __future__ import annotations
@@ -98,7 +95,7 @@ def _rows(a: torch.Tensor, s: int, base_ndim: int) -> torch.Tensor:
 
 
 # unet_fn: (x [B,h,w,4] fp32, t int, ctx [B,S,D], pooled [B,P], concept_idx
-# [B], cross_kv=None) -> eps [B,h,w,4] fp32
+# [B]) -> eps [B,h,w,4] fp32
 UNetFn = Callable[..., torch.Tensor]
 
 
@@ -121,7 +118,6 @@ class FusionSampler:
         unet_fn: UNetFn,
         decode_preview_fn: Optional[Callable] = None,
         segment_fn: Optional[Callable] = None,
-        kv_builder: Optional[Callable] = None,
     ):
         if table.n_steps != config.n_timesteps:
             raise ValueError(f"table has {table.n_steps} steps, config {config.n_timesteps}")
@@ -132,47 +128,25 @@ class FusionSampler:
         self.unet_fn = unet_fn
         self.decode_preview_fn = decode_preview_fn
         self.segment_fn = segment_fn
-        # optional (ctx_rows, concept_idx) -> cross-attention K/V cache
-        # (models.unet2d.precompute_cross_kv) or None, built once per phase
-        self.kv_builder = kv_builder
         # wall seconds of each phase of the last run(), device work included
         self.phase_seconds: dict[str, float] = {}
 
     # -- helpers -----------------------------------------------------------
 
-    def _call_unet(self, xin, t, ctx, pooled, idx, kv):
-        if kv is None:
-            return self.unet_fn(xin, t, ctx, pooled, idx)
-        return self.unet_fn(xin, t, ctx, pooled, idx, cross_kv=kv)
-
-    def _joint_rows(self, embeds: TextEmbeds, s: int):
-        ctx = _rows(embeds.joint_ctx, s, 3)
-        return ctx, _rows(embeds.joint_pooled, s, 2), torch.zeros(
-            2 * s, dtype=torch.long, device=ctx.device)
-
-    def _joint_kv(self, embeds: TextEmbeds, s: int):
-        if self.kv_builder is None:
-            return None
-        ctx, _, idx = self._joint_rows(embeds, s)
-        return self.kv_builder(ctx, idx)
-
-    def _joint_eps(self, embeds: TextEmbeds, x, t, kv=None):
+    def _joint_eps(self, embeds: TextEmbeds, x, t):
         s = x.shape[0]
-        ctx, pooled, idx = self._joint_rows(embeds, s)
-        eps = self._call_unet(torch.cat([x, x], dim=0), t, ctx, pooled, idx, kv)
+        ctx = _rows(embeds.joint_ctx, s, 3)
+        idx = torch.zeros(2 * s, dtype=torch.long, device=ctx.device)
+        eps = self.unet_fn(torch.cat([x, x], dim=0), t, ctx, _rows(embeds.joint_pooled, s, 2), idx)
         return eps[:s], eps[s:]
 
-    def _prologue_rows(self, embeds: TextEmbeds, s: int):
-        n = self.config.num_concepts
+    def _prologue_eps(self, embeds: TextEmbeds, x, t):
+        n, s = self.config.num_concepts, x.shape[0]
         ctx = torch.cat([_rows(embeds.joint_ctx, s, 3), _rows(embeds.single_ctx, s, 3)], dim=0)
         pooled = torch.cat(
             [_rows(embeds.joint_pooled, s, 2), _rows(embeds.single_pooled, s, 2)], dim=0)
-        return ctx, pooled, torch.zeros((n + 1) * s, dtype=torch.long, device=ctx.device)
-
-    def _prologue_eps(self, embeds: TextEmbeds, x, t, kv=None):
-        n = self.config.num_concepts
-        ctx, pooled, idx = self._prologue_rows(embeds, x.shape[0])
-        return self._call_unet(torch.cat([x] * (n + 1), dim=0), t, ctx, pooled, idx, kv)
+        idx = torch.zeros((n + 1) * s, dtype=torch.long, device=ctx.device)
+        return self.unet_fn(torch.cat([x] * (n + 1), dim=0), t, ctx, pooled, idx)
 
     # -- phases ------------------------------------------------------------
 
@@ -183,14 +157,8 @@ class FusionSampler:
         t = int(tbl.timesteps[0])
         at, at_next = tbl.alpha(t), tbl.alpha(t - tbl.skip)
         s = x.shape[0]
-        kv_pro = kv_joint = None
-        if self.kv_builder is not None:
-            pctx, _, pidx = self._prologue_rows(embeds, s)
-            kv_pro = self.kv_builder(pctx, pidx)
-            kv_joint = self._joint_kv(embeds, s)
-
         with step_span("prologue", 0, t, (n + 1) * s):
-            eps = self._prologue_eps(embeds, x, t, kv=kv_pro)
+            eps = self._prologue_eps(embeds, x, t)
         for _ in range(cfg.resampling_steps):
             with step_span("resampling", 0, t - tbl.skip, 2 * s):
                 eps_u = eps[:s]
@@ -200,11 +168,11 @@ class FusionSampler:
                     eps_s = cfg_combine(eps_u, eps[(2 + cc) * s : (3 + cc) * s], g)
                     x0 = x0 - tbl.tweedie(x, eps_s, at)
                 x_next = tbl.renoise(x0, eps_u, at_next)
-                eu2, ec2 = self._joint_eps(embeds, x_next, t - tbl.skip, kv=kv_joint)
+                eu2, ec2 = self._joint_eps(embeds, x_next, t - tbl.skip)
                 x0_next = tbl.tweedie(x_next, cfg_combine(eu2, ec2, g), at_next)
                 x = tbl.renoise(x0_next, eu2, at)  # back up to t with the uncond eps
             with step_span("prologue", 0, t, (n + 1) * s):
-                eps = self._prologue_eps(embeds, x, t, kv=kv_pro)
+                eps = self._prologue_eps(embeds, x, t)
 
         eps_u = eps[:s]
         x0 = tbl.tweedie(x, cfg_combine(eps_u, eps[s : 2 * s], g), at)
@@ -217,12 +185,11 @@ class FusionSampler:
         cfg, tbl = self.config, self.table
         if stop <= start:
             return x, None
-        kv = self._joint_kv(embeds, x.shape[0])
         x0 = None
         for i in range(start, stop):
             t = int(tbl.timesteps[i])
             with step_span("joint", i, t, 2 * x.shape[0]):
-                eps_u, eps_c = self._joint_eps(embeds, x, t, kv=kv)
+                eps_u, eps_c = self._joint_eps(embeds, x, t)
                 x0 = tbl.tweedie(x, cfg_combine(eps_u, eps_c, cfg.guidance_scale), tbl.alpha(t))
                 if i == cfg.n_timesteps - 1:
                     x = x0
@@ -235,12 +202,11 @@ class FusionSampler:
         march joint forwards with t -= jump_stride; return the last x0."""
         cfg, tbl = self.config, self.table
         t0 = int(tbl.timesteps[cfg.t_cond_idx])
-        kv = self._joint_kv(embeds, x.shape[0])
         x0 = torch.zeros_like(x)
         for j in range(cfg.jumping_steps):
             tt = t0 - j * cfg.jump_stride
             with step_span("jumping", j, tt, 2 * x.shape[0]):
-                eps_u, eps_c = self._joint_eps(embeds, x, tt, kv=kv)
+                eps_u, eps_c = self._joint_eps(embeds, x, tt)
                 x0 = tbl.tweedie(x, cfg_combine(eps_u, eps_c, cfg.guidance_scale), tbl.alpha(tt))
                 x = tbl.renoise(x0, eps_u, tbl.alpha(tt - cfg.jump_stride))
         return x0
@@ -260,12 +226,11 @@ class FusionSampler:
         m = m.to(x.dtype)
         ctx_rows = _rows(embeds.concept_ctx, s, 3)
         pooled_rows = _rows(embeds.concept_pooled, s, 2)
-        kv = None if self.kv_builder is None else self.kv_builder(ctx_rows, concept_idx)
         for i in range(start, stop):
             t = int(tbl.timesteps[i])
             with step_span("fused", i, t, (n + 1) * s):
-                eps = self._call_unet(torch.cat([x] * (n + 1), dim=0), t, ctx_rows, pooled_rows,
-                                      concept_idx, kv)
+                eps = self.unet_fn(torch.cat([x] * (n + 1), dim=0), t, ctx_rows, pooled_rows,
+                                   concept_idx)
                 eps_u = eps[:s]
                 eps_cc = cfg_combine(eps_u, eps[s:].reshape(n, s, *x.shape[1:]),
                                      cfg.guidance_scale)

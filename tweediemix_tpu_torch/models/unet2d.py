@@ -212,9 +212,9 @@ class Attention(nn.Module):
                           getattr(self, f"{name}_lora_up"), idx)
 
     def kv(self, ctx: torch.Tensor, idx: torch.Tensor, precomputed: bool = False):
-        """This cross-attention's K and V rows for context ``ctx``. The
-        precomputed cache (``precomputed``) takes a non-stacked K/V from the
-        float weight even under quant, as the JAX package does."""
+        """This cross-attention's K and V rows for context ``ctx``.
+        ``precompute_cross_kv`` (``precomputed``) takes a non-stacked K/V
+        from the float weight even under quant, as the JAX package does."""
         if self.stacked:
             k = stacked_linear(ctx, self.to_k_stack, idx)
             v = stacked_linear(ctx, self.to_v_stack, idx)
@@ -243,7 +243,7 @@ class Attention(nn.Module):
             q = self.to_q(x)
             if self.lora_slots:
                 q = q + self.lora("to_q", x, concept_idx)
-            # kv: precomputed by precompute_cross_kv (loop-invariant context)
+            # kv: precomputed by precompute_cross_kv (the UNet call's runner)
             k, v = kv if kv is not None else self.kv(ctx, concept_idx)
         out = multi_head_attention(q, k, v, self.heads)
         proj = self.to_out[0](out)
@@ -479,7 +479,8 @@ class UNet2DConditionModel(nn.Module):
     def denoise(self, sample, timestep, encoder_hidden_states, pooled_projections,
                 time_ids, concept_idx=None, cross_kv=None):
         """The forward's body, without its ``unet`` span: what
-        ``models/unet_graph.py`` captures inside a span of its own."""
+        ``models/unet_graph.py`` captures inside a span of its own, with the
+        K/V of ``precompute_cross_kv`` as ``cross_kv``."""
         cfg = self.config
         dtype = cfg.dtype
         b = sample.shape[0]
@@ -582,9 +583,10 @@ def cross_attention_names(cfg: UNetConfig):
 def precompute_cross_kv(unet: UNet2DConditionModel, encoder_hidden_states, concept_idx=None):
     """Every attn2's K/V rows for a fixed text context.
 
-    The context is constant across a sampling trajectory, so the per-row
-    stacked-weight gather, the K/V projections and their LoRA deltas run
-    once per phase; the result goes to the UNet as ``cross_kv``. A
+    The per-row stacked-weight gather, the K/V projections and their LoRA
+    deltas of one UNet call; the result goes to the UNet as ``cross_kv``.
+    The fusion pipeline's UNet call builds it on every call
+    (``models/unet_graph.py``: inside the CUDA graph on a card). A
     non-stacked K/V is a plain float projection here even under quant, as
     in the JAX package (its in-module path quantises).
 

@@ -2,17 +2,27 @@
 the JAX package's jitted scan bodies, ``tweediemix_tpu/fusion/sampler.py``).
 
 ``UNetGraphs(unet)(x, t, ctx, pooled, time_ids, idx)`` is the fusion
-pipeline's UNet call. An eager forward makes some thousand launches and
-their Python a call, about as long as the card takes to run them, so the
-host sets the pace. Here a call whose inputs are on a card with autograd
-off (``engages``) costs a few input copies and one graph launch:
+pipeline's UNet call. Its body is ``precompute_cross_kv`` then the
+forward's body (``UNet2DConditionModel.denoise``): the cross-attention K/V
+is built on every call, from the call's own context, so the runner
+computes one function on every device and nothing of the K/V outlives a
+call. Where a call's inputs are not on a card with autograd off
+(``engages``: the CPU, under autograd) the runner runs that body on the
+caller's inputs through ``UNet2DConditionModel.forward``, whose ``unet``
+span says ``graph="eager"`` (the K/V is built just before it), so that
+whatever wraps the forward (the benchmark's planted faults) wraps this
+call too.
+
+On a card an eager forward makes some thousand launches and their Python
+a call, about as long as the card takes to run them, so the host sets the
+pace. There a call costs a few input copies and one graph launch:
 
 * the first call of a key (the card, the shapes and dtypes of the inputs,
   and ``ops/attention.py::dispatch_key``, the knobs that choose the
-  kernels) runs the forward eagerly on a side stream (cuDNN and cuBLAS
+  kernels) runs the body eagerly on a side stream (cuDNN and cuBLAS
   plans, the kernels' first load), returns that result, and captures the
-  same work into a graph, in one memory pool per card that every graph of
-  the runner on that card shares;
+  same work into a graph, in the one memory pool that every graph of the
+  runner shares (the runner's UNet lives on one card);
 * a later call copies ``x``, ``ctx``, ``pooled``, ``time_ids`` and ``idx``
   into the key's static buffers, writes the timestep (a number) with
   ``fill_`` (a kernel with the scalar as its argument, no host-to-device
@@ -21,17 +31,14 @@ off (``engages``) costs a few input copies and one graph launch:
   so that no later call overwrites a prediction a caller still holds. No
   call synchronises with the host.
 
-The captured work is ``precompute_cross_kv`` then the forward's body
-(``UNet2DConditionModel.denoise``) on the static buffers: the cross-attention
-K/V is built inside the graph on every call, the same function on the same
-inputs as the sampler's per-phase cache, so nothing of it outlives a call
-outside the graph's pool. The pool holds the call's intermediates between
-calls, where the eager forward hands them back to the allocator.
+The pool holds the call's intermediates, the K/V among them, between
+calls, where the eager body hands them back to the allocator.
 
 A replay runs no Python of the forward, so it opens no span below ``unet``
 and no kernel wrapper counts its launches. The runner opens the ``unet``
-span itself, with ``rows`` and ``graph`` (``"capture"`` or ``"replay"``;
-the forward's own span says ``"eager"``). After a capture it reads the
+span of a capture or a replay itself, with ``rows`` and ``graph``
+(``"capture"`` or ``"replay"``; the forward's own span says ``"eager"``).
+After a capture it reads the
 graph's kernel nodes through libcuda (``graph_kernel_names``) and
 checks that each counted kernel (``ops/cuda_build.py::LAUNCH_COUNTERS``)
 is there as often as its wrapper counted launches during the capture, or
@@ -41,8 +48,7 @@ launch of its kernel on the card, eager or replayed.
 
 A graph holds the UNet's weights by address and each W8A8 site's static
 scale as it was at the capture: after such a weight tensor or scale is
-replaced, a new ``UNetGraphs`` captures afresh. Other inputs (a call under
-autograd, on the CPU) take the eager forward unchanged.
+replaced, a new ``UNetGraphs`` captures afresh.
 """
 
 from __future__ import annotations
@@ -134,8 +140,8 @@ class UNetGraphs:
     def __init__(self, unet: UNet2DConditionModel):
         self.unet = unet
         self.graphs: Dict[tuple, _Graph] = {}
-        self.pools: dict = {}  # card -> the memory pool its graphs share
-        self.sides: dict = {}  # card -> the stream of its captures and their eager warm-ups
+        self.pool = None  # the memory pool every graph shares, from the first capture
+        self.side = None  # the stream of the captures and their eager warm-ups
         self.captures = self.replays = 0
         self._lock = threading.Lock()  # one capture or replay at a time
 
@@ -147,7 +153,7 @@ class UNetGraphs:
 
     def __call__(self, x, t, ctx, pooled, time_ids, idx) -> torch.Tensor:
         if not self.engages(x):
-            return self.unet(x, t, ctx, pooled, time_ids, idx)
+            return self._body(self.unet, (x, ctx, pooled, time_ids, idx), t)
         key = (x.device, *((tuple(a.shape), a.dtype) for a in (x, ctx, pooled, time_ids, idx)),
                *dispatch_key())
         with self._lock, torch.cuda.device(x.device):
@@ -170,10 +176,12 @@ class UNetGraphs:
             # so the caller gets the kind of tensor the eager forward gives it
             return out.clone()
 
-    def _body(self, inputs, t):
+    def _body(self, run, inputs, t):
+        """``run``: the forward (eager) or its body without the span (a
+        capture, inside the runner's own span)."""
         x, ctx, pooled, time_ids, idx = inputs
         kv = precompute_cross_kv(self.unet, ctx, idx)
-        return self.unet.denoise(x, t, ctx, pooled, time_ids, idx, cross_kv=kv)
+        return run(x, t, ctx, pooled, time_ids, idx, cross_kv=kv)
 
     def _capture(self, key, x, t, ctx, pooled, time_ids, idx) -> torch.Tensor:
         dev = x.device
@@ -181,12 +189,12 @@ class UNetGraphs:
                        for a in (x, ctx, pooled, time_ids, idx))
         ts = torch.empty((), dtype=torch.float32, device=dev).fill_(t)
         current = torch.cuda.current_stream(dev)
-        if dev not in self.sides:
-            self.sides[dev] = torch.cuda.Stream(dev)
-        side = self.sides[dev]
+        if self.side is None:
+            self.side = torch.cuda.Stream(dev)
+        side = self.side
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            eager = self._body(inputs, ts)
+            eager = self._body(self.unet.denoise, inputs, ts)
         current.wait_stream(side)
         eager.record_stream(current)
 
@@ -194,9 +202,9 @@ class UNetGraphs:
         before = [fn.launches for fn in counted]
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes are read below
         try:
-            with torch.cuda.graph(graph, pool=self.pools.get(dev), stream=side,
+            with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                   capture_error_mode="thread_local"):
-                out = self._body(inputs, ts)
+                out = self._body(self.unet.denoise, inputs, ts)
             recorded = [fn.launches - b for fn, b in zip(counted, before)]
         finally:  # the capture ran nothing on the card: take back what it counted
             for fn, b in zip(counted, before):
@@ -209,7 +217,7 @@ class UNetGraphs:
                 f"the captured UNet call holds {dict(zip((f.kernel for f in counted), nodes))} "
                 f"nodes of the counted kernels, their wrappers launched "
                 f"{dict(zip((f.kernel for f in counted), recorded))}")
-        self.pools[dev] = graph.pool()
+        self.pool = graph.pool()
         self.graphs[key] = _Graph(graph, inputs, ts, out,
                                   tuple((fn, n) for fn, n in zip(counted, nodes) if n))
         self.captures += 1

@@ -21,8 +21,8 @@ of ``tweediemix_tpu/ops/quant.py``).
 and its fp32 per-channel scales (``weight_scale``, kept fp32 when the module
 is cast to bf16); their bias is cast with the module. No float copy of the
 weight stays, except where ``keep_weight`` asks for one (the non-stacked
-cross-attention K/V, whose precomputed cache uses the float weight, as the
-JAX package's ``precompute_cross_kv`` does).
+cross-attention K/V, which ``precompute_cross_kv`` projects with the float
+weight, as the JAX package's does).
 
 Each ``QLinear`` carries its site key: the JAX package's
 ``"/".join(scope.path)``, under which ``quant_scales_sdxl.json`` and

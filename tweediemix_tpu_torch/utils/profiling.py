@@ -20,10 +20,6 @@
   viewable in Perfetto or ``chrome://tracing``) and the spans recorded
   meanwhile (``spans.json``, with the trace's ``baseTimeNanoseconds``) into
   ``dir`` when it closes; it yields the profiler;
-* ``device_breakdown``: device time by kernel class of a finished profile
-  (``profiler_kernels``) or of a Chrome trace file
-  (``chrome_trace_kernels``), its top kernels and the device's idle share
-  from the union of kernel intervals;
 * ``graph_ms``, ``flushed_ms``: device ms per call of a function, warm or
   with the L2 flushed, from CUDA graphs timed with CUDA events (the host's
   enqueue rate cannot show); ``host_us_per_call``: the host's µs to
@@ -47,7 +43,7 @@ import re
 import threading
 import time
 import warnings
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -340,73 +336,3 @@ def host_us_per_call(fn, calls: int = 200, repeats: int = 5) -> float:
         torch.cuda.synchronize()
     return sorted(runs)[repeats // 2]
 
-
-# -- device time by kernel class -------------------------------------------------
-
-KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
-    ("short_attention", ("short_attn_kernel",)),
-    ("flash_attention_int8", ("flash_int8_wgmma_kernel", "absmax_kernel", "quantize_kernel<")),
-    ("flash_attention", ("flash_fwd_kernel",)),
-    ("layout", ("nchwToNhwc", "nhwcToNchw")),
-    ("convolution", ("fprop", "conv", "dgrad", "winograd")),
-    ("gemm_int8", ("s8s8", "i8i8", "imma", "_s8_", "_i8_", "int8")),
-    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
-    ("norm", ("norm", "moments")),  # GroupNorm's statistics: RowwiseMomentsCUDAKernel
-    ("softmax", ("softmax",)),
-    ("elementwise/copy", ("elementwise", "vectorized", "copy", "cat", "fill", "reduce", "index")),
-)
-
-
-def kernel_class(name: str) -> str:
-    low = name.lower()
-    for cls, keys in KERNEL_CLASSES:
-        if any(k.lower() in low for k in keys):
-            return cls
-    return "other"
-
-
-def profiler_kernels(prof) -> List[Tuple[str, float, float]]:
-    """(name, start µs, device µs) of every CUDA kernel of a finished
-    torch.profiler run."""
-    from torch.autograd import DeviceType
-
-    return [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
-
-
-def chrome_trace_kernels(path: str) -> List[Tuple[str, float, float]]:
-    """(name, start µs, device µs) of every kernel event of a Chrome trace
-    that ``trace`` wrote."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    return [(e["name"], float(e["ts"]), float(e.get("dur", 0.0))) for e in events
-            if e.get("cat") == "kernel" and e.get("ph") == "X"]
-
-
-def device_breakdown(kernels: Iterable[Tuple[str, float, float]], wall_ms: float) -> dict:
-    """Device time (ms) and kernel count by class of ``kernels`` ((name,
-    start µs, µs) triples), the top kernels, and the device's idle share
-    against ``wall_ms``: the device is busy over the union of the kernels'
-    intervals, so kernels that overlap count once."""
-    by_name, by_class, counts = {}, {}, {}
-    intervals = []
-    for name, start, us in kernels:
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + us / 1e3)
-        cls = kernel_class(name)
-        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
-        counts[cls] = counts.get(cls, 0) + 1
-        intervals.append((start, start + us))
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(intervals):
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    busy_ms = busy_us / 1e3
-    top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:12]
-    return dict(
-        device_busy_ms=busy_ms,
-        device_idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
-        by_class_ms={k: round(v, 3) for k, v in sorted(by_class.items(), key=lambda i: -i[1])},
-        by_class_count=counts,
-        top_kernels=[dict(name=n[:110], count=c, ms=round(t, 3)) for n, (c, t) in top],
-    )

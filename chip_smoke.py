@@ -23,7 +23,12 @@ JAX or of the JAX package. Phases:
    device alone beside their bound, the plain version and ``torch._int_mm``; the bf16 kernel with a gradient at the training shape
    (``FlashAttention``: the kernel forward, the math backward), dq/dk/dv
    against autograd of the fp32 plain version, with the backward's time,
-   bound and SDPA's forward+backward;
+   bound and SDPA's forward+backward; the GroupNorm kernel (optional SiLU)
+   at every GroupNorm shape of the SDXL call (2 and 4 rows) and the
+   I2VGen-XL loop call, found by a forward on the ``meta`` device (46 and
+   166 calls), held to the exact fp64 result within 1.05 times PyTorch's
+   bf16 error, timed on the device alone beside its bytes bound and the
+   plain version (``F.group_norm`` + ``F.silu``), with sums per UNet call;
 3. reference: a small UNet and a short fusion sample on the card (bf16,
    through the kernel) against the same weights on the CPU (fp32, plain
    versions); with resampling, the card's distance from fp32 is held
@@ -41,7 +46,8 @@ JAX or of the JAX package. Phases:
    masks) through ``TweedieMixPipeline.sample``, twice, with the kernel's
    launch count checked on each run, then once more under torch.profiler,
    where the flash-kernel events of the trace (the UNet calls are CUDA
-   graph replays) and the counter must both read 5250; then two seeds unsharded and over a
+   graph replays) and the counter must both read 5250, the GroupNorm
+   kernel's 3450 (46 a call); then two seeds unsharded and over a
    2-entry mesh on ``cuda:0`` (``parallel/mesh.py``: every UNet call's rows
    split in two, so twice the launches), the latents held to each other;
    then the CLI path: a full-width SDXL checkpoint of seeded random weights
@@ -101,8 +107,9 @@ JAX or of the JAX package. Phases:
    attention core on (``TWEEDIEMIX_FLASH_INT8=1``): one warm and one timed
    call, the int8 kernel's and its quantise passes' launch counts checked
    and the bf16 kernel's held at 0, the W8A8 linear kernels' at 442 a UNet
-   call, and the same counts from the kernel events of a third, traced
-   call and from the counters over it; no synchronising operation in a
+   call, and the same counts (with the GroupNorm kernel's 3450) from the
+   kernel events of a third, traced call and from the counters over it;
+   no synchronising operation in a
    replayed UNet call;
 6. video: the short-sequence (frame-axis) kernel against its plain version
    at the video path's five shapes (as views of a merged qkv and
@@ -115,7 +122,8 @@ JAX or of the JAX package. Phases:
    (``UNet3DConfig.i2vgen()`` in bf16 with seeded random weights, fp32 VAE,
    50 DDIM steps, CFG 9, 16 frames at 512², the short-attention knob on)
    through ``I2VPipeline.generate``, one warm and one timed clip with both
-   kernels' launch counts checked; two clips unsharded and over the 2-entry
+   kernels' launch counts checked and the GroupNorm kernel's (8300, 166 a
+   call, each reading x once); two clips unsharded and over the 2-entry
    mesh (one clip per shard), the loop cut to 10 steps, launches counted
    and the latents held to each other;
 7. the video CLI: a full-width I2VGen-XL directory of seeded random weights
@@ -253,7 +261,13 @@ W8A8_LINEAR_SHAPES = [(rows * tokens, k, n) for rows in (2, 4)
                       for k, n in pairs]
 W8A8_SITES = 442  # W8A8 linear sites per SDXL UNet call
 VIDEO_W8A8_SITES = 264  # W8A8 linear sites per I2VGen-XL loop call (video_w8a8_shapes)
-KERNELS = ("flash_attention", "flash_attention_int8", "short_attention", "w8a8_linear")
+GN_SITES_SDXL = 46  # GroupNorm (ops/group_norm.py) calls per SDXL UNet call, 35 with SiLU
+GN_SITES_VIDEO = 166  # per I2VGen-XL loop call, 133 with SiLU, 105 of them temporal
+# the GroupNorm kernel at the exact (fp64) result on the same bf16 inputs: its
+# max abs error at most this times PyTorch's bf16 F.group_norm (+ F.silu)
+GN_ERR_RATIO_TOL = 1.05
+KERNELS = ("flash_attention", "flash_attention_int8", "short_attention", "w8a8_linear",
+           "group_norm")
 
 
 def fail(msg: str) -> None:
@@ -811,6 +825,7 @@ def phase_main_path() -> dict:
     from tweediemix_tpu_torch.models.unet2d import UNetConfig
     from tweediemix_tpu_torch.models.vae import VAEConfig
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention
+    from tweediemix_tpu_torch.ops.group_norm import group_norm
 
     n = 3  # cat + dog + background
     ucfg = UNetConfig.sdxl(concept_slots=n + 1, dtype=torch.bfloat16)
@@ -820,6 +835,7 @@ def phase_main_path() -> dict:
     expected = expected_flash_launches(ucfg, fcfg)
     if expected != 5250:
         fail(f"expected 5250 flash launches for this config, the config gives {expected}")
+    gn_expected = GN_SITES_SDXL * fcfg.unet_calls()  # 3450
 
     t0 = time.perf_counter()
     pipe = TweedieMixPipeline.from_random_weights(ucfg, vcfg, fcfg, seed=0, device="cuda")
@@ -833,7 +849,8 @@ def phase_main_path() -> dict:
     runs = []
     for run in range(2):
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
+        flash_attention.launches = group_norm.launches = 0
+        gn_paths = dict(group_norm.paths)
         t0 = time.perf_counter()
         img = pipe.sample(embeds, seed=run, fg_masks=fg, num_seeds=1)
         torch.cuda.synchronize()
@@ -841,7 +858,8 @@ def phase_main_path() -> dict:
         launches = flash_attention.launches
         latent = pipe.last_latent
         stats = dict(
-            s_per_image=wall, launches=launches,
+            s_per_image=wall, launches=launches, group_norm_launches=group_norm.launches,
+            group_norm_paths={k: v - gn_paths[k] for k, v in group_norm.paths.items()},
             phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
             max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
             image_mean=img.float().mean().item(), latent_absmax=latent.abs().max().item(),
@@ -855,16 +873,23 @@ def phase_main_path() -> dict:
             fail("image outside [0, 1]")
         if launches != expected:
             fail(f"flash_attention launched {launches} times on the main path, expected {expected}")
+        if group_norm.launches != gn_expected:
+            fail(f"group_norm launched {group_norm.launches} times on the main path, expected "
+                 f"{gn_expected}")
         runs.append(stats)
     # the launches on the card, from a trace of one more image: its UNet calls are replays
-    flash_attention.launches = 0
+    flash_attention.launches = group_norm.launches = 0
     traced = traced_launches(lambda: pipe.sample(embeds, seed=2, fg_masks=fg, num_seeds=1),
-                             ("flash_fwd_kernel",))
+                             ("flash_fwd_kernel", "group_norm_kernel"))
     traced["counter"] = flash_attention.launches
+    traced["group_norm_counter"] = group_norm.launches
     log(f"main path traced image: {json.dumps(traced)}")
     if traced["kernels"]["flash_fwd_kernel"] != expected or traced["counter"] != expected:
         fail(f"main path traced image: {traced['kernels']['flash_fwd_kernel']} flash-kernel events "
              f"in the trace, the counter {traced['counter']}; expected {expected}")
+    if traced["kernels"]["group_norm_kernel"] != gn_expected or group_norm.launches != gn_expected:
+        fail(f"main path traced image: {traced['kernels']['group_norm_kernel']} group-norm events "
+             f"in the trace, the counter {group_norm.launches}; expected {gn_expected}")
     mesh = mesh_fusion(pipe, embeds, fg, expected)
     # the fp32 decode alone: its mid-block attention holds a 16384 x 16384
     # fp32 score matrix (1 GiB) and its softmax
@@ -2335,6 +2360,7 @@ def phase_w8a8_main_path() -> dict:
         flash_attention_int8,
         quantize_qkv_int8_fused,
     )
+    from tweediemix_tpu_torch.ops.group_norm import group_norm
     from tweediemix_tpu_torch.ops.quant import load_static_scales, quant_sites, w8a8_matmul_cuda
     from tweediemix_tpu_torch.tools.calibrate_quant import calibrate_unet, probe_inputs
 
@@ -2406,18 +2432,20 @@ def phase_w8a8_main_path() -> dict:
             runs.append(stats)
         # the launches on the card, from a trace of one more sample: its UNet calls are replays
         flash_attention.launches = flash_attention_int8.launches = 0
-        quantize_qkv_int8_fused.launches = w8a8_matmul_cuda.launches = 0
+        quantize_qkv_int8_fused.launches = w8a8_matmul_cuda.launches = group_norm.launches = 0
         traced = traced_launches(
             lambda: pipe.sample(embeds, seed=2, fg_masks=fg, num_seeds=seeds),
             ("flash_int8_wgmma_kernel", "quantize_kernel", "w8a8_int8_gemm_kernel",
-             "flash_fwd_kernel"))
+             "flash_fwd_kernel", "group_norm_kernel"))
         traced["counters"] = dict(flash_int8_wgmma_kernel=flash_attention_int8.launches,
                                   quantize_kernel=quantize_qkv_int8_fused.launches,
                                   w8a8_int8_gemm_kernel=w8a8_matmul_cuda.launches,
-                                  flash_fwd_kernel=flash_attention.launches)
+                                  flash_fwd_kernel=flash_attention.launches,
+                                  group_norm_kernel=group_norm.launches)
         log(f"W8A8 main path traced sample: {json.dumps(traced)}")
         want = dict(flash_int8_wgmma_kernel=expected, quantize_kernel=expected,
-                    w8a8_int8_gemm_kernel=W8A8_SITES * fcfg.unet_calls(), flash_fwd_kernel=0)
+                    w8a8_int8_gemm_kernel=W8A8_SITES * fcfg.unet_calls(), flash_fwd_kernel=0,
+                    group_norm_kernel=GN_SITES_SDXL * fcfg.unet_calls())
         if traced["kernels"] != want or traced["counters"] != want:
             fail(f"W8A8 main path traced sample: kernel events {traced['kernels']}, counters "
                  f"{traced['counters']}; expected {want}")
@@ -2457,6 +2485,149 @@ def count_syncs(pipe, ctx, pooled, idx) -> int:
             torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.synchronize()
     return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def group_norm_sites() -> dict:
+    """The GroupNorm calls of one UNet call, from a forward on the ``meta``
+    device with the op and the attention cores stubbed: for the SDXL call at
+    2 and 4 rows and the I2VGen-XL loop call, {(x shape, groups, silu):
+    count}."""
+    from collections import Counter
+
+    import torch
+
+    from tweediemix_tpu_torch.models import unet2d, unet3d
+    from tweediemix_tpu_torch.ops import attention, short_attention
+    from tweediemix_tpu_torch.video.pipeline import VideoConfig
+
+    seen = Counter()
+
+    def spy(x, num_groups, weight=None, bias=None, eps=1e-5, silu=False):
+        seen[(tuple(x.shape), num_groups, silu)] += 1
+        return torch.empty_like(x)
+
+    saved = (unet2d.group_norm, attention.attention, short_attention.short_seq_attention)
+    unet2d.group_norm = spy
+    attention.attention = lambda q, k, v, scale=None: torch.empty_like(q)
+    short_attention.short_seq_attention = lambda q, k, v, heads, scale: torch.empty_like(q)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    sites = {}
+    try:
+        unet = unet2d.UNet2DConditionModel(
+            unet2d.UNetConfig.sdxl(concept_slots=4, dtype=torch.bfloat16), device="meta")
+        for rows in (2, 4):
+            seen.clear()
+            with torch.inference_mode():
+                unet(torch.empty((rows, 128, 128, 4), **meta), 501,
+                     torch.empty((rows, 77, 2048), **meta), torch.empty((rows, 1280), **meta),
+                     torch.empty((rows, 6), **meta), torch.zeros(rows, dtype=torch.long, device="meta"))
+            sites[f"sdxl_{rows}_rows"] = dict(seen)
+        ucfg = unet3d.UNet3DConfig.i2vgen(dtype=torch.bfloat16)
+        vcfg = VideoConfig()
+        unet = unet3d.UNet3DConditionModel(ucfg, device="meta")
+        h, w = vcfg.latent_hw
+        x = torch.empty((2, vcfg.num_frames, h, w, 4), **meta)
+        ctx = torch.empty((2, 77, ucfg.cross_attention_dim), **meta)
+        emb = torch.empty((2, ucfg.cross_attention_dim), **meta)
+        fps = torch.full((2,), float(vcfg.fps), device="meta")
+        seen.clear()
+        with torch.inference_mode():
+            cctx, cil, kv = unet3d.precompute_video_cache(unet, ctx, x, emb, fps)
+            unet(x, 501, ctx, x, emb, fps, False, False, vcfg.interp_ratio, cached_ctx=cctx,
+                 cached_il=cil, cross_kv=kv)
+        sites["video"] = dict(seen)
+    finally:
+        unet2d.group_norm, attention.attention, short_attention.short_seq_attention = saved
+    for name, want in (("sdxl_2_rows", GN_SITES_SDXL), ("sdxl_4_rows", GN_SITES_SDXL),
+                       ("video", GN_SITES_VIDEO)):
+        if sum(sites[name].values()) != want:
+            fail(f"{name}: {sum(sites[name].values())} GroupNorm calls a UNet call, expected {want}")
+    return sites
+
+
+def phase_kernels_group_norm() -> dict:
+    """The GroupNorm kernel (``csrc/group_norm.cu``) at every GroupNorm shape
+    of the SDXL call (2 and 4 rows) and the I2VGen-XL loop call, bf16: its
+    max abs error against the exact (fp64) computation on the same inputs
+    within GN_ERR_RATIO_TOL times that of PyTorch's bf16 composition; times
+    on the device alone (``utils/profiling.py``): ``ms`` from a CUDA graph of
+    launches, ``flushed_ms`` with the L2 flushed between launches (the share
+    of the bytes bound is taken from it); the plain version (``F.group_norm``
+    then ``F.silu``, what the models ran before, and so also the library
+    call) and its flushed time. Sums per UNet call weight each shape by its
+    sites."""
+    import torch
+
+    from tweediemix_tpu_torch.ops import group_norm as gn_module
+    from tweediemix_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+    from tweediemix_tpu_torch.utils.profiling import flushed_ms, graph_ms, host_us_per_call
+
+    sites = group_norm_sites()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = sorted({key for calls in sites.values() for key in calls},
+                    key=lambda k: (-math.prod(k[0]), k))
+    rows = {}
+    for shape, groups, silu in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(len(rows) + 21)
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (1.0 + 0.2 * torch.randn(shape[1], generator=gen, device="cuda")).to(torch.bfloat16)
+        b = (0.2 * torch.randn(shape[1], generator=gen, device="cuda")).to(torch.bfloat16)
+        eps = 1e-5
+        exact = group_norm_reference(x.double(), groups, w.double(), b.double(), eps, silu)
+        got = group_norm(x, groups, w, b, eps, silu=silu)
+        lib = group_norm_reference(x, groups, w, b, eps, silu)
+        err = (got.double() - exact).abs().max().item()
+        lib_err = (lib.double() - exact).abs().max().item()
+        scale = exact.abs().max().item()
+        del exact, got, lib
+        if not err <= GN_ERR_RATIO_TOL * lib_err:
+            fail(f"group_norm at {shape} G={groups} silu={silu}: max err {err:.3e} > "
+                 f"{GN_ERR_RATIO_TOL} x PyTorch's {lib_err:.3e}")
+
+        def kernel():
+            return group_norm(x, groups, w, b, eps, silu=silu)
+
+        def plain():
+            return group_norm_reference(x, groups, w, b, eps, silu)
+
+        n, c = shape[:2]
+        spatial = x.numel() // (n * c)
+        plan = gn_module.launch_plan(n * groups, c // groups * spatial, spatial, c // groups, 2,
+                                     True, sms)
+        nbytes = 2.0 * x.numel() * 2 + 2 * c * 2  # x read once, y written once, gamma and beta
+        bound_ms = nbytes / H100_HBM_BYTES * 1e3
+        ms, cold_ms = graph_ms(kernel, 20), flushed_ms(kernel, 10)
+        plain_ms, plain_cold_ms = graph_ms(plain, 10), flushed_ms(plain, 5)
+        row = dict(shape=list(shape), groups=groups, silu=silu, cluster=plan.cluster,
+                   threads=plan.threads, one_read=plan.one_read, max_abs_err=err,
+                   rel_err=err / scale, pytorch_max_abs_err=lib_err, ms=ms, flushed_ms=cold_ms,
+                   plain_ms=plain_ms, plain_flushed_ms=plain_cold_ms, library_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / cold_ms,
+                   gbytes_per_s=nbytes / cold_ms / 1e6)
+        rows[(shape, groups, silu)] = row
+        log(f"group_norm {shape} G={groups} silu={silu} cluster {plan.cluster} x {plan.threads} "
+            f"{'one read' if plan.one_read else 'two reads'}: max_abs_err {err:.3e} (PyTorch "
+            f"{lib_err:.3e}) ms {ms:.4f} flushed_ms {cold_ms:.4f} plain_ms {plain_ms:.4f} "
+            f"plain_flushed_ms {plain_cold_ms:.4f} bound_ms {bound_ms:.4f} share "
+            f"{row['share_of_bound']:.3f} {row['gbytes_per_s']:.0f} GB/s")
+        del x
+    per_call = {}
+    for name, calls in sites.items():
+        total = {k: sum(rows[key][k] * m for key, m in calls.items())
+                 for k in ("ms", "flushed_ms", "plain_ms", "plain_flushed_ms", "bound_ms")}
+        total["sites"] = sum(calls.values())
+        total["one_read_share"] = sum(m for key, m in calls.items()
+                                      if rows[key]["one_read"]) / total["sites"]
+        per_call[name] = total
+        log(f"group_norm per {name} call: {json.dumps(total)}")
+    head = rows[shapes[0]]
+    x = torch.randn(shapes[0][0], device="cuda").to(torch.bfloat16)
+    head["host_us_per_call"] = host_us_per_call(lambda: group_norm(x, shapes[0][1], silu=True))
+    head["library_host_us_per_call"] = host_us_per_call(
+        lambda: group_norm_reference(x, shapes[0][1], silu=True))
+    log(f"group_norm host us per call at {shapes[0][0]}: {head['host_us_per_call']:.2f} "
+        f"(F.group_norm + F.silu {head['library_host_us_per_call']:.2f})")
+    return dict(rows=list(rows.values()), per_call=per_call)
 
 
 def phase_kernels_short() -> list:
@@ -2721,12 +2892,14 @@ def phase_video_main_path() -> dict:
     from tweediemix_tpu_torch.models.unet3d import UNet3DConfig
     from tweediemix_tpu_torch.models.vae import VAEConfig
     from tweediemix_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
+    from tweediemix_tpu_torch.ops.group_norm import group_norm
     from tweediemix_tpu_torch.ops.short_attention import short_seq_attention
     from tweediemix_tpu_torch.video.pipeline import I2VPipeline, VideoConfig
 
     ucfg = UNet3DConfig.i2vgen(dtype=torch.bfloat16)
     vcfg = VideoConfig()
     ctx_len = 77
+    gn_expected = GN_SITES_VIDEO * vcfg.n_timesteps  # 8300
     os.environ["TWEEDIEMIX_SHORT_ATTENTION"] = "1"
     sites = video_sites_per_call(ucfg, vcfg.latent_hw, vcfg.num_frames, ctx_len + 64 + 4)
     expected = {k: v * vcfg.n_timesteps for k, v in sites.items()}
@@ -2747,7 +2920,8 @@ def phase_video_main_path() -> dict:
         for run in range(2):  # a warm clip, then the timed one
             torch.cuda.reset_peak_memory_stats()
             flash_attention.launches = flash_attention_int8.launches = 0
-            short_seq_attention.launches = 0
+            short_seq_attention.launches = group_norm.launches = 0
+            gn_paths = dict(group_norm.paths)
             t0 = time.perf_counter()
             video = pipe.generate(text, uncond, image, emb, seed=run)
             torch.cuda.synchronize()
@@ -2755,6 +2929,8 @@ def phase_video_main_path() -> dict:
             launches = dict(short=short_seq_attention.launches, flash=flash_attention.launches)
             stats = dict(
                 s_per_clip=wall, launches=launches, int8_launches=flash_attention_int8.launches,
+                group_norm_launches=group_norm.launches,
+                group_norm_paths={k: v - gn_paths[k] for k, v in group_norm.paths.items()},
                 phases={k: round(v, 4) for k, v in pipe.phase_seconds.items()},
                 max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                 video_mean=video.float().mean().item(),
@@ -2770,6 +2946,9 @@ def phase_video_main_path() -> dict:
             if launches != expected or flash_attention_int8.launches != 0:
                 fail(f"video path launches {launches} (int8 {flash_attention_int8.launches}), "
                      f"expected {expected} and 0 int8")
+            if group_norm.launches != gn_expected or stats["group_norm_paths"]["one_read"] != gn_expected:
+                fail(f"video path: group_norm launched {group_norm.launches} times, "
+                     f"{stats['group_norm_paths']}, expected {gn_expected}, each reading x once")
             runs.append(stats)
         mesh = mesh_video(pipe, (text, uncond, image, emb), sites)
     finally:
@@ -3482,6 +3661,7 @@ def main() -> None:
     reference_train = phase_reference_train()
     reference_w8a8 = phase_reference_w8a8()
     short_rows = phase_kernels_short()
+    gn = phase_kernels_group_norm()
     reference_video = phase_reference_video()
     reference_video_w8a8 = phase_reference_video_w8a8()
     reference_segmentation = phase_reference_segmentation()
@@ -3552,6 +3732,14 @@ def main() -> None:
               video_mesh_launches=video["mesh"]["mesh2"]["launches"]["short"],
               video_mesh_unsharded_launches=video["mesh"]["unsharded"]["launches"]["short"],
               cli_video_w8a8_launches=cli_runs["w8a8"]["launches"]["short"]),
+        entry("group_norm", "tweediemix_tpu_torch/csrc/group_norm.cu",
+              "none (nn.GroupNorm left to XLA: tweediemix_tpu/models/unet2d.py:363,398,405,580, "
+              "unet3d.py:159)", main_path["runs"][-1]["group_norm_launches"], gn["rows"],
+              flushed_ms=gn["rows"][0]["flushed_ms"], share_of_bound=gn["rows"][0]["share_of_bound"],
+              host_us_per_call=gn["rows"][0]["host_us_per_call"], per_call=gn["per_call"],
+              video_launches=video["runs"][-1]["group_norm_launches"],
+              paths=dict(image=main_path["runs"][-1]["group_norm_paths"],
+                         clip=video["runs"][-1]["group_norm_paths"])),
     ]
     log(json.dumps(dict(main_path=main_path, cli_path=cli, reference_w8a8=reference_w8a8,
                         reference_train=reference_train, kernel_grad=grad_row,

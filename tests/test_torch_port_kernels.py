@@ -9,7 +9,9 @@ version in fp32 on the same bf16 inputs (for the int8 kernel: on the same
 int8 inputs, with the kernel's block_k), for the flash kernels and the
 short-sequence (frame-axis) kernel alike. The limit is relative because randn
 inputs give outputs of std ~ sqrt(e/Sk), far below 1; bf16 output rounding
-alone reads up to ~4e-3.
+alone reads up to ~4e-3. The GroupNorm kernel is held to the exact (fp64)
+computation on the same bf16 inputs: its max abs error at most 1.05 times
+that of PyTorch's bf16 ``F.group_norm`` (then ``F.silu``) on those inputs.
 """
 
 import ctypes
@@ -41,6 +43,8 @@ from tweediemix_tpu_torch.ops.flash_attention import (
 )
 
 from tweediemix_tpu_torch.ops.short_attention import short_seq_attention, short_seq_attention_reference
+from tweediemix_tpu_torch.ops import group_norm as gn_module
+from tweediemix_tpu_torch.ops.group_norm import group_norm
 from tweediemix_tpu_torch.ops import quant as quant_module
 from tweediemix_tpu_torch.tools import int8_variants, short_timing
 
@@ -849,3 +853,189 @@ def test_cpu_tensors_never_reach_the_w8a8_kernels(monkeypatch):
         got = lin(x)
     want = quant_module.w8a8_matmul_reference(x, lin.weight_q, lin.weight_scale, 0.0, lin.bias)
     assert torch.equal(got, want) and quant_module.w8a8_matmul_cuda.launches == before
+
+
+# -- GroupNorm (csrc/group_norm.cu) ------------------------------------------------------
+
+# (x shape, groups): the video UNet's 64 temporal rows of 1.3 MB (sixteen
+# blocks a row), 1024 spatial rows of 80 and 240 KB, SDXL's 128 rows at 128²
+# (983 KB at 960 channels), and 4 rows of 4 MB that no cluster's shared
+# memory holds (x read twice)
+GN_CARD_SHAPES = [((2, 320, 16, 64, 64), 32), ((32, 320, 64, 64), 32), ((32, 960, 64, 64), 32),
+                  ((4, 320, 128, 128), 32), ((4, 960, 128, 128), 32), ((2, 64, 16, 64, 64), 2)]
+GN_TOL = 1.05
+
+
+def _gn_case(shape, seed, mean=0.0, std=1.0, dtype=torch.bfloat16):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (mean + std * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+    w = (1.0 + 0.2 * torch.randn(shape[1], generator=g, device="cuda")).to(dtype)
+    b = (0.2 * torch.randn(shape[1], generator=g, device="cuda")).to(dtype)
+    return x, w, b
+
+
+def _gn_errors(x, groups, w, b, silu, eps=1e-5):
+    """The kernel's output and the max abs errors of it and of PyTorch's
+    composition in x's dtype, against the exact computation (fp64) on the
+    same inputs."""
+    exact = gn_module.group_norm_reference(x.double(), groups, w.double(), b.double(), eps, silu)
+    got = group_norm(x, groups, w, b, eps, silu=silu)
+    lib = gn_module.group_norm_reference(x, groups, w, b, eps, silu)
+    torch.cuda.synchronize()
+    return (got, (got.double() - exact).abs().max().item(),
+            (lib.double() - exact).abs().max().item())
+
+
+def _gn_plan(x, groups):
+    n, c = x.shape[:2]
+    spatial = x.numel() // (n * c)
+    return gn_module.launch_plan(n * groups, c // groups * spatial, spatial, c // groups,
+                                 x.element_size(), x.data_ptr() % 16 == 0,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("shape,groups", GN_CARD_SHAPES)
+def test_group_norm_kernel_is_no_less_exact_than_pytorch_on_card(shape, groups, silu):
+    _card()
+    x, w, b = _gn_case(shape, 11)
+    plan = _gn_plan(x, groups)
+    launches, paths = group_norm.launches, dict(group_norm.paths)
+    got, err, lib_err = _gn_errors(x, groups, w, b, silu)
+    print(f"group_norm {shape} G={groups} silu={silu} plan {plan}: max err {err:.3e}, "
+          f"PyTorch bf16 {lib_err:.3e}")
+    assert got.shape == x.shape and got.dtype == x.dtype and torch.isfinite(got).all()
+    assert err <= GN_TOL * lib_err
+    assert group_norm.launches == launches + 1
+    path = "one_read" if plan.one_read else "reread"
+    assert group_norm.paths[path] == paths[path] + 1
+    assert plan.one_read == (shape != (2, 64, 16, 64, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [GN_CARD_SHAPES[0], GN_CARD_SHAPES[-1]])
+def test_group_norm_kernel_merges_rows_far_from_zero_on_card(shape, groups):
+    """Mean 1000 and standard deviation 8: a sum of squares in fp32 loses
+    the variance to cancellation; Chan's merge keeps it."""
+    _card()
+    x, w, b = _gn_case(shape, 12, mean=1000.0, std=8.0)
+    got, err, lib_err = _gn_errors(x, groups, w, b, False)
+    print(f"group_norm {shape} mean 1000 std 8: max err {err:.3e}, PyTorch bf16 {lib_err:.3e}")
+    assert err <= GN_TOL * lib_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 0), (torch.float16, 0),
+                                          (torch.bfloat16, 1), (torch.float32, 3)])
+@pytest.mark.parametrize("shape,groups", [((2, 12, 5, 7), 3), ((3, 64, 16, 16), 8),
+                                          ((2, 32, 4, 9, 9), 4)])
+def test_group_norm_kernel_takes_other_types_and_unaligned_tensors_on_card(shape, groups, dtype,
+                                                                           offset):
+    """fp32 and fp16, and x one element past a 16-byte boundary (or S not a
+    whole number of 16 bytes): single-element loads and two reads."""
+    _card()
+    numel = 1
+    for d in shape:
+        numel *= d
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = (2.0 + torch.randn(numel + offset, generator=g, device="cuda")).to(dtype)[offset:].view(shape)
+    w = (1.0 + 0.2 * torch.randn(shape[1], generator=g, device="cuda")).to(dtype)
+    b = (0.2 * torch.randn(shape[1], generator=g, device="cuda")).to(dtype)
+    for silu in (False, True):
+        got, err, lib_err = _gn_errors(x, groups, w, b, silu)
+        assert got.dtype == dtype and err <= 2 * lib_err + 1e-6, (err, lib_err)
+    full = 16 // x.element_size()
+    spatial = x.numel() // (shape[0] * shape[1])
+    assert _gn_plan(x, groups).vec == (1 if offset or spatial % full else full)
+
+
+@pytest.mark.cuda
+def test_group_norm_kernel_in_a_graph_capture_on_card():
+    """Captured in a CUDA graph and replayed on new inputs, the kernel gives
+    what an eager launch gives, bit for bit; the capture counts a launch
+    and no path."""
+    _card()
+    x, w, b = _gn_case((2, 320, 16, 32, 32), 14)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        group_norm(static, 32, w, b, 1e-6, silu=True)  # the library's first load, off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    launches, paths = group_norm.launches, dict(group_norm.paths)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = group_norm(static, 32, w, b, 1e-6, silu=True)
+    assert group_norm.launches == launches + 1 and group_norm.paths == paths
+    for seed in (15, 16):
+        fresh, _, _ = _gn_case((2, 320, 16, 32, 32), seed)
+        static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, group_norm(fresh, 32, w, b, 1e-6, silu=True))
+
+
+@pytest.mark.cuda
+def test_group_norm_gradient_path_launches_the_kernel_on_card():
+    _card()
+    x, w, b = _gn_case((2, 64, 4, 16, 16), 17)
+    up = torch.randn(x.shape, device="cuda").to(x.dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    launches = group_norm.launches
+    out = group_norm(*leaves[:1], 8, *leaves[1:], 1e-5, silu=True)
+    assert group_norm.launches == launches + 1 and out.grad_fn.name() == "GroupNormFunctionBackward"
+    (out.float() * up.float()).sum().backward()
+    plain = [t.clone().requires_grad_() for t in (x, w, b)]
+    ref = gn_module.group_norm_reference(plain[0], 8, plain[1], plain[2], 1e-5, True)
+    (ref.float() * up.float()).sum().backward()
+    for a, e in zip(leaves, plain):
+        assert torch.equal(a.grad, e.grad)
+
+
+@pytest.mark.cuda
+def test_group_norm_plan_shared_memory_agrees_with_the_kernel_on_card():
+    _card()
+    lib, fn = gn_module._launcher()
+    smem = lib.tm_group_norm_smem_bytes
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int] * 4
+    for shape, groups in GN_CARD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.empty(shape, dtype=dtype, device="cuda")
+            plan = _gn_plan(x, groups)
+            cpg = shape[1] // groups
+            assert smem(plan.chunk, x.element_size(), cpg, int(plan.one_read)) == plan.smem_bytes
+    x = torch.ones((2, 8, 4, 4), dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):
+        group_norm(x, 2)
+    with pytest.raises(ValueError):
+        group_norm(x.float(), 3)
+    y = torch.empty((2, 8, 4, 4), dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    # a cluster of three blocks is no plan the kernel takes
+    assert fn(y.data_ptr(), y.data_ptr(), None, None, 0, 0, 0, 4, 64, 16, 4, 2, 1e-5, 0, 3, 128,
+              32, 8, 1, 1, stream) != 0
+
+
+@pytest.mark.cuda
+def test_group_norm_check_catches_an_unmerged_cluster_on_card(tmp_path, monkeypatch):
+    """Mutation check: a copy of the kernel in which every block of a
+    cluster takes the first block's statistics for the row's must fail the
+    comparison at the temporal rows (sixteen blocks a row)."""
+    _card()
+    merged = "if (static_cast<uint32_t>(lane) < cluster) {"
+    src = _copy_sources("group_norm", tmp_path)
+    assert src.count(merged) == 1
+    (tmp_path / "group_norm.cu").write_text(src.replace(merged, "if (lane == 0) {"))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    lib = ctypes.CDLL(str(cuda_build.build_library("group_norm")))
+    monkeypatch.setattr(gn_module, "_launcher", lambda: (lib, gn_module.bind(lib)))
+    x, w, b = _gn_case((2, 320, 16, 64, 64), 18)
+    # channels of different means, so that the first block's share of a row is not the row
+    x = (x.float() + 0.05 * torch.arange(320, device="cuda").view(1, 320, 1, 1, 1)).to(x.dtype)
+    _, err, lib_err = _gn_errors(x, 32, w, b, False)
+    print(f"group_norm with one block's statistics for the cluster's: max err {err:.3e}, "
+          f"PyTorch bf16 {lib_err:.3e}")
+    assert err > GN_TOL * lib_err

@@ -185,19 +185,22 @@ def test_every_counted_wrapper_names_a_kernel_of_its_sources():
     assert {fn.__name__: fn.kernel for fn in counters} == {
         "flash_attention": "flash_fwd_kernel", "flash_attention_int8": "flash_int8_wgmma_kernel",
         "quantize_qkv_int8_fused": "quantize_kernel", "w8a8_matmul_cuda": "w8a8_int8_gemm_kernel",
-        "short_seq_attention": "short_attn_kernel"}
+        "short_seq_attention": "short_attn_kernel", "group_norm": "group_norm_kernel"}
     assert {fn.kernel for fn in counters} <= kernels
 
 
 @pytest.mark.parametrize("kernel,count", [
     ("flash_fwd_kernel", 2), ("quantize_kernel", 1), ("w8a8_int8_quant_kernel", 1),
-    ("flash_int8_wgmma_kernel", 0), ("absmax_kernel", 0)])
+    ("flash_int8_wgmma_kernel", 0), ("absmax_kernel", 0), ("group_norm_kernel", 2)])
 def test_kernel_launches_counts_nodes_by_the_kernels_source_name(kernel, count):
     names = ["_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iif",
              "(anonymous namespace)::flash_fwd_kernel<128, false>(CUtensorMap_st)",
              "_ZN12_GLOBAL__N_115quantize_kernelILi64EEvPK5uint4S3_PK13__nv_bfloat16P5uint2",
              "_ZN12_GLOBAL__N_122w8a8_int8_quant_kernelI13__nv_bfloat16EEvPKT_PaPffii",
              "_ZN12_GLOBAL__N_120absmax_kernel_sharedEv",
+             "_ZN12_GLOBAL__N_117group_norm_kernelI13__nv_bfloat16Li8ELb1EEEvNS_6ParamsE",
+             "void (anonymous namespace)::group_norm_kernel<float, 1, false>(Params)",
+             "void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float, float>",
              "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>", ""]
     assert kernel_launches(names, kernel) == count
 

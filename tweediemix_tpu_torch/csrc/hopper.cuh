@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // shared-memory mbarriers, TMA tensor loads from 2-D, 3-D and 4-D tensor maps,
-// TMA tensor stores with their bulk groups, named barriers, register
+// TMA tensor stores with their bulk groups, 1-D bulk loads, thread block
+// clusters (barriers, distributed shared memory), named barriers, register
 // rebalancing between warpgroups, and warpgroup matrix multiplies (wgmma)
 // with their shared-memory descriptors. Raw PTX, no CUTLASS. A source that includes this header is rebuilt when the header
 // changes (ops/cuda_build.py hashes every header a source includes).
@@ -158,6 +159,54 @@ __device__ __forceinline__ void bulk_wait_group() {
 // the same memory by the TMA unit (the async proxy), such as a TMA store.
 __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) of global
+// memory at `src` into this block's shared memory at `dst` with one bulk
+// copy; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// -- thread block clusters ----------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster calls both, arrive then wait;
+// the arrive releases the thread's earlier memory operations to the threads
+// that return from the wait, across the cluster.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at `p` (this block's shared memory) in the shared memory of the
+// cluster's block `rank`: the same offset, read through distributed shared
+// memory.
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // -- named barriers and register rebalancing ---------------------------------

@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from tweediemix_tpu_torch.device import resolve_device
 from tweediemix_tpu_torch.models.embeddings import TimestepEmbedding, timestep_embedding
 from tweediemix_tpu_torch.ops.attention import multi_head_attention
+from tweediemix_tpu_torch.ops.group_norm import group_norm
 from tweediemix_tpu_torch.ops.quant import QUANT_MODES, QConv2d, QLinear
 from tweediemix_tpu_torch.ops.stacked import lora_delta, stacked_linear
 from tweediemix_tpu_torch.utils.profiling import span
@@ -297,6 +298,13 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
+def norm_act(norm: nn.GroupNorm, x: torch.Tensor, silu: bool = True) -> torch.Tensor:
+    """``norm(x)``, then SiLU where ``silu``: ``ops/group_norm.py``, one
+    kernel launch on a card, the plain ``F.group_norm`` (and ``F.silu``)
+    on the CPU."""
+    return group_norm(x, norm.num_groups, norm.weight, norm.bias, norm.eps, silu=silu)
+
+
 class Transformer2DModel(nn.Module):
     """Spatial transformer with linear projections (SDXL's
     ``use_linear_projection=True``)."""
@@ -320,7 +328,7 @@ class Transformer2DModel(nn.Module):
         """x: NCHW; kv: (k [L, B, S, inner], v [L, B, S, inner]) or None."""
         b, c, h, w = x.shape
         residual = x
-        x = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        x = norm_act(self.norm, x, silu=False).permute(0, 2, 3, 1).reshape(b, h * w, c)
         x = self.proj_in(x)
         for i, block in enumerate(self.transformer_blocks):
             x = block(x, ctx, concept_idx, kv=None if kv is None else (kv[0][i], kv[1][i]))
@@ -341,9 +349,9 @@ class ResnetBlock2D(nn.Module):
         )
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(norm_act(self.norm1, x))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(norm_act(self.norm2, h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -536,7 +544,7 @@ class UNet2DConditionModel(nn.Module):
                 for sampler in block.upsamplers:
                     x = sampler(x)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(norm_act(self.conv_norm_out, x))
         return x.permute(0, 2, 3, 1).float()
 
 

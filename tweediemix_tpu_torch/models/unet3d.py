@@ -51,6 +51,7 @@ from tweediemix_tpu_torch.models.unet2d import (
     UNetBlock,
     Upsample2D,
     linear,
+    norm_act,
     quant_site,
 )
 from tweediemix_tpu_torch.ops.quant import QUANT_MODES, QLinear
@@ -154,7 +155,9 @@ class MLPEmbedding(nn.Sequential):
 class TemporalConvLayer(nn.Module):
     """diffusers ``TemporalConvLayer``: four GroupNorm → SiLU → conv-over-frames
     stages and one residual. ``convK`` is diffusers' ``nn.Sequential`` (norm at
-    0, conv at 2, or at 3 behind the dropout slot of stages 2-4)."""
+    0, conv at 2, or at 3 behind the dropout slot of stages 2-4); the forward
+    runs slots 0 and 1 as one ``norm_act`` (GroupNorm and SiLU in one kernel
+    launch on a card), then the conv."""
 
     def __init__(self, channels: int, norm_num_groups: int):
         super().__init__()
@@ -172,7 +175,7 @@ class TemporalConvLayer(nn.Module):
         """x: [B·F, C, h, w]."""
         y = _frames_channels_first(x, num_frames)
         for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
-            y = stage(y)
+            y = stage[-1](norm_act(stage[0], y))  # slots 0-1 in one op; slot 2 is off
         return x + y.transpose(1, 2).reshape(x.shape)
 
 
@@ -214,7 +217,7 @@ class TransformerTemporalModel(nn.Module):
         """x: [B·F, C, h, w]."""
         bf, c, h, w = x.shape
         b = bf // num_frames
-        y = self.norm(_frames_channels_first(x, num_frames))  # [B, C, F, h, w]
+        y = norm_act(self.norm, _frames_channels_first(x, num_frames), silu=False)  # [B, C, F, h, w]
         y = self.proj_in(y.permute(0, 3, 4, 2, 1).reshape(b * h * w, num_frames, c))
         for block in self.transformer_blocks:
             y = block(y)
@@ -501,7 +504,7 @@ class UNet3DConditionModel(nn.Module):
                     for sampler in blk.upsamplers:
                         x = sampler(x)
 
-            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            x = self.conv_out(norm_act(self.conv_norm_out, x))
             return unfold_frames(x, b).float()
 
 

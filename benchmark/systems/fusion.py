@@ -36,6 +36,7 @@ from benchmark.systems.record import DTYPES, Recorder, follow, rel_l2, sync
 
 CROSS_KV = re.compile(r"attn2\.to_[kv]\.weight$")
 SLICE_CALLS = {"joint": 2, "fused": 4}  # the traced slice: UNet calls by phase, 24 : 51 per image
+COMPARED = ("update_rel", "unet_rel", "decode_abs")  # what ``System.check`` returns
 
 
 def program_configs(cfg: dict, wl: dict):
@@ -69,6 +70,13 @@ def program_configs(cfg: dict, wl: dict):
 
 class System:
     unit = "image"
+
+    @classmethod
+    def compares(cls, wl: dict) -> tuple:
+        """The names of the numbers ``check`` returns for workload ``wl``
+        (``missed_kernel_path`` is the harness's): a cell's ``limits`` name
+        exactly these."""
+        return COMPARED
 
     def __init__(self, cfg: dict, wl: dict, seed: int, device: str):
         from tweediemix_tpu_torch.fusion.pipeline import TweedieMixPipeline
@@ -361,7 +369,7 @@ class System:
         masks = plain.region_masks(self.fg)
         phases = plain.calls()
         rng = np.random.default_rng([abs(self.seed), 0xC4EC])
-        out = dict(update_rel=0.0, unet_rel=0.0, decode_abs=0.0)
+        out = dict.fromkeys(COMPARED, 0.0)
         ctl = dict(out) if control else None
         bits = (control or {}).get("bits")
         for kept in reservoir.kept:

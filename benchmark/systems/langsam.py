@@ -6,11 +6,11 @@ t_cond, through ``tweediemix_tpu_torch`` (``TweedieMixPipeline.sample`` with
 ``segmentation.make_model_segment_fn``, as the fusion CLI builds it).
 
 A workload's ``mode`` is its request: ``loop``, one image as the fusion
-cells make it but with in-loop segmentation; ``segment``, one
-``segment_fn`` call on a 1024x1024 image drawn from the request's seed (a
-uniform field of ``image.field``² cells upsampled bilinearly, plus
-N(0, ``image.noise``²) per pixel, clipped to [0, 1]), with no pipeline and
-no SDXL weights.
+cells make it but with in-loop segmentation, timed as ``s_per_image``;
+``segment``, one ``segment_fn`` call on a 1024x1024 image drawn from the
+request's seed (a uniform field of ``image.field``² cells upsampled
+bilinearly, plus N(0, ``image.noise``²) per pixel, clipped to [0, 1]), with
+no pipeline and no SDXL weights, timed as ``s_per_call``.
 
 Set-up draws SAM and OWL-ViT from their own streams under their published
 names and hands them to the program's loaders (``models/convert.py``:
@@ -60,6 +60,8 @@ from benchmark.systems import fusion
 from benchmark.systems.record import DTYPES, rel_l2, rel_max, sync
 
 FIELD_STREAM, NOISE_STREAM = 10, 11
+SEGMENTATION = ("box_abs", "seg_rel")  # compared in both modes
+PREVIEW = ("preview_abs",)  # compared in ``loop``, with ``fusion.COMPARED``
 
 
 def box_gap(boxes, scores, ref_boxes, ref_scores) -> float:
@@ -162,7 +164,12 @@ def preview_decode(vae: VAE, latent: torch.Tensor, factor: float) -> torch.Tenso
 
 
 class System(fusion.System):
-    unit = "image"
+    @classmethod
+    def compares(cls, wl: dict) -> tuple:
+        """The names of the numbers ``check`` returns for workload ``wl``
+        (``missed_kernel_path`` is the harness's): a cell's ``limits`` name
+        exactly these."""
+        return fusion.COMPARED + PREVIEW + SEGMENTATION if wl["mode"] == "loop" else SEGMENTATION
 
     def __init__(self, cfg: dict, wl: dict, seed: int, device: str):
         from tweediemix_tpu_torch.models.convert import load_detector, load_sam
@@ -170,6 +177,7 @@ class System(fusion.System):
         from tweediemix_tpu_torch.utils.tokenizer import HashTokenizer
 
         self.loop = wl["mode"] == "loop"
+        self.unit = "image" if self.loop else "call"  # what a request is: ``s_per_<unit>``
         if self.loop:
             if wl["seeds_per_request"] != 1:
                 raise ValueError("in-loop segmentation records one seed's preview a request")
@@ -341,7 +349,7 @@ class System(fusion.System):
         tf32 = set((control or {}).get("tf32", ()))
         thr = self.cfg["detector"]["box_threshold"]
         rec = self.seg
-        names = ["box_abs", "seg_rel"] + (["preview_abs"] if self.loop else [])
+        names = SEGMENTATION + (PREVIEW if self.loop else ())
         out = dict.fromkeys(names, 0.0)
         ctl = dict(out) if control else None
 

@@ -29,6 +29,7 @@ from benchmark.reference.vae import VAE
 from benchmark.systems.record import DTYPES, Recorder, follow, rel_l2, sync
 
 SLICE_STEPS = 6  # the traced slice: loop steps, after the injection
+COMPARED = ("update_rel", "unet_rel", "site_rel", "decode_abs")  # what ``System.check`` returns
 
 
 def program_configs(cfg: dict, wl: dict):
@@ -65,6 +66,13 @@ def latent_factor(cfg: dict) -> int:
 
 class System:
     unit = "clip"
+
+    @classmethod
+    def compares(cls, wl: dict) -> tuple:
+        """The names of the numbers ``check`` returns for workload ``wl``
+        (``missed_kernel_path`` is the harness's): a cell's ``limits`` name
+        exactly these."""
+        return COMPARED
 
     def __init__(self, cfg: dict, wl: dict, seed: int, device: str):
         from tweediemix_tpu_torch.models.convert import load_unet3d, load_vae
@@ -256,7 +264,7 @@ class System:
         vae.load_state_dict(vae_w, assign=True)
         rec, plain, s = self.recorder, self.plain, self.cfg["sampling"]
         rng = np.random.default_rng([abs(self.seed), 0xC4EC])
-        out = dict(update_rel=0.0, unet_rel=0.0, site_rel=0.0, decode_abs=0.0)
+        out = dict.fromkeys(COMPARED, 0.0)
         ctl = dict(out) if control else None
         site = unet.get_submodule(self.wl["check"]["site"]["module"])
         n_inject = plain.injection_steps()

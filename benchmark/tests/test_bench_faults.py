@@ -37,7 +37,10 @@ def run_cell(cell_data, capsys, monkeypatch, miss_kernel=False):
     rc = harness.run(cell, SEED, 0.2, False, 0.0, device="cpu", chips_check=False,
                      cell_data=(wl, cfg))
     assert rc == 0
-    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    # the check compares exactly what its system declares, sound or not
+    assert set(line["compared"]) == set(driver.System.compares(wl)) | {"missed_kernel_path"}
+    return line
 
 
 def half_batch(forward):

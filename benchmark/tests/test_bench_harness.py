@@ -4,6 +4,8 @@ reservoir, the names and units of ``BENCHMARK.json``, which metrics each
 cell reports, and which modules the benchmark's files import."""
 
 import ast
+import copy
+import importlib
 import json
 import os
 import re
@@ -105,7 +107,9 @@ def test_judge_holds_every_number_to_its_limit_and_every_request_to_its_path():
 
 def test_window_logs_what_the_host_spent_on_each_request():
     def request(i, seed):
-        sum(range(200_000))  # CPU work on the launching thread
+        start = time.thread_time()
+        while time.thread_time() - start < 0.03:  # CPU work on the launching thread, past
+            sum(range(10_000))  # a clock that ticks in 10 ms
         time.sleep(0.02)
         return {}
 
@@ -134,6 +138,13 @@ def test_names_units_and_shapes_of_the_benchmark_file():
         assert len(w["why"]) <= 200
 
 
+def unmatched_limits(wl: dict, cfg: dict) -> set:
+    """The names in the workload's ``limits`` or among the numbers its
+    system's check compares, but not in both."""
+    driver = importlib.import_module(f"benchmark.systems.{cfg['system']}")
+    return set(wl["limits"]) ^ set(driver.System.compares(wl))
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_every_cell_reports_what_its_metrics_move(cell):
     e2e = {m["name"] for m in harness.cell_metrics(SPEC, cell, "end_to_end")}
@@ -143,7 +154,20 @@ def test_every_cell_reports_what_its_metrics_move(cell):
         assert m["moves"] in e2e, (m["name"], m["moves"])
         assert any((BENCH / "metrics" / f"{n}.py").is_file() for n in (m["name"], m["name"].split(".")[0]))
     wl, cfg = harness.load_cell(cell)
-    assert {"update_rel", "unet_rel", "decode_abs"} <= set(wl["limits"])
+    assert not unmatched_limits(wl, cfg)
+
+
+@pytest.mark.parametrize("cell, key", [("sdxl-fusion-n3-langsam.segment", "update_rel"),
+                                       ("sdxl-fusion-n3.bf16-1seed", "box_abs"),
+                                       ("i2vgen-xl.bf16-clip", "preview_abs")])
+def test_a_limit_its_check_does_not_compare_fails_the_cell(cell, key):
+    wl, cfg = copy.deepcopy(harness.load_cell(cell))
+    wl["limits"][key] = 1.0
+    assert unmatched_limits(wl, cfg) == {key}
+    del wl["limits"][key]
+    compared = next(iter(wl["limits"]))
+    del wl["limits"][compared]  # a number compared with no limit
+    assert unmatched_limits(wl, cfg) == {compared}
 
 
 def imports_of(path: Path):

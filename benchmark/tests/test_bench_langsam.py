@@ -119,16 +119,27 @@ def faults():
 
 @pytest.mark.parametrize("cell", [LOOP, SEGMENT])
 def test_a_sound_run_is_correct_and_reports_its_metrics(cell, capsys, monkeypatch):
+    from benchmark.systems.langsam import System
+
     line = run_cell(cell, capsys, monkeypatch, trace=True)
     assert line["correct"], line["compared"]
-    want = {"box_abs", "seg_rel", "missed_kernel_path"}
-    if cell == LOOP:
-        want |= {"preview_abs", "update_rel", "unet_rel", "decode_abs"}
-    assert set(line["compared"]) == want
+    assert set(line["compared"]) == set(System.compares(tiny(cell)[0])) | {"missed_kernel_path"}
     assert line["compared"]["seg_rel"]["value"] < 1e-4
     if cell == LOOP:
         assert {"segment_s.image", "mfu_pct.langsam", "decode_s.image", "joint_s.image"} <= set(
             line["metrics"]), line["metrics"]
+    else:  # the CPU's slice has no device events: the device's readers read nothing
+        assert {"mfu_pct.segment"} <= set(line["metrics"]) <= {
+            "mfu_pct.segment", "segment_syncs_per_call.segment"}, line["metrics"]
+
+
+@pytest.mark.parametrize("cell, unit", [(LOOP, "image"), (SEGMENT, "call")])
+def test_an_untraced_run_times_its_own_request(cell, unit, capsys, monkeypatch):
+    """The in-loop cell's request is an image and the segmentation-only
+    cell's one ``segment_fn`` call: each prints its own end-to-end time."""
+    line = run_cell(cell, capsys, monkeypatch)
+    assert line["correct"], line["compared"]
+    assert set(line["metrics"]) == {f"s_per_{unit}", "peak_mem_gib", "setup_s"}, line["metrics"]
 
 
 @pytest.mark.parametrize("fault", range(7))
@@ -195,13 +206,19 @@ def test_the_new_readers_read_a_tiny_traced_slice():
                    slice=dict(shape, window_s=0.5, busy_s=0.2, by_class={"gemm": 0.1}))
         got = {name: harness.read_metric(name, ctx) for name in (
             "segment_s.image", "segment_syncs_per_call.langsam", "device_idle_pct.langsam",
-            "mfu_pct.langsam", "seg_gemm_roofline_pct.langsam")}
+            "mfu_pct.langsam", "seg_gemm_roofline_pct.langsam", "mfu_pct.segment",
+            "device_idle_pct.segment", "segment_syncs_per_call.segment")}
     finally:
         profiling.TRACER.clear()
     assert all(v is not None and v >= 0 for v in got.values()), got
-    assert got["device_idle_pct.langsam"] == pytest.approx(60.0)
+    assert got["device_idle_pct.langsam"] == got["device_idle_pct.segment"] == pytest.approx(60.0)
     ops = shape["seg_work"]["seg_gemm"] + shape["seg_work"]["seg_attention"]
     assert got["seg_gemm_roofline_pct.langsam"] == pytest.approx(100 * ops / 67e12 / 0.1)
+    # a segment call's work is all fp32: the whole step's share at that peak
+    assert got["mfu_pct.segment"] == pytest.approx(100 * sum(shape["seg_work"].values()) / 67e12 / 0.2)
+    assert got["mfu_pct.segment"] == pytest.approx(got["mfu_pct.langsam"])
+    assert got["segment_syncs_per_call.segment"] == got["segment_syncs_per_call.langsam"]
     # the parent commit's program has no langsam span: nothing is read
     ctx["slice"]["segment_calls"] = 2
     assert harness.read_metric("segment_syncs_per_call.langsam", ctx) is None
+    assert harness.read_metric("segment_syncs_per_call.segment", ctx) is None

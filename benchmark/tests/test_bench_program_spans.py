@@ -47,12 +47,12 @@ def fake(monkeypatch):
     return put
 
 
-def test_the_readers_take_the_first_pass(fake):
-    fake(store())
+@pytest.mark.parametrize("sites", [3, 0])  # a W8A8 store, and a bf16 one with no site
+def test_the_readers_take_the_first_pass(fake, sites):
+    fake(store(sites=sites))
     assert harness.read_metric("host_ms_per_call.image", ctx()) == pytest.approx(10.0)
     assert harness.read_metric("host_ms_per_call.clip", ctx()) == pytest.approx(10.0)
     assert harness.read_metric("host_syncs_per_call.image", ctx()) == pytest.approx(1.0)
-    assert harness.read_metric("w8a8_host_us_per_site.image", ctx()) == pytest.approx(100.0)
     fake(store(step="video.step", syncs=(2, 5)))
     assert harness.read_metric("host_syncs_per_call.clip", ctx()) == pytest.approx(2.0)
 
@@ -69,8 +69,7 @@ def test_the_first_pass_holds_its_calls_their_steps_and_what_is_below(fake):
 @pytest.mark.parametrize("passes", [1, 3])
 def test_nothing_is_read_unless_the_store_holds_two_passes(fake, passes):
     fake(store(passes=passes))
-    for name in ("host_ms_per_call.image", "host_syncs_per_call.clip",
-                 "w8a8_host_us_per_site.image"):
+    for name in ("host_ms_per_call.image", "host_syncs_per_call.clip"):
         assert harness.read_metric(name, ctx()) is None
     fake(store())
     assert harness.read_metric("host_ms_per_call.image", ctx(calls=3)) is None
@@ -79,12 +78,5 @@ def test_nothing_is_read_unless_the_store_holds_two_passes(fake, passes):
 
 def test_a_program_without_spans_reads_nothing(monkeypatch):
     monkeypatch.delattr(profiling, "spans")
-    for name in ("host_ms_per_call.image", "host_syncs_per_call.image",
-                 "w8a8_host_us_per_site.image"):
+    for name in ("host_ms_per_call.image", "host_syncs_per_call.image"):
         assert harness.read_metric(name, ctx()) is None
-
-
-def test_a_bf16_store_has_no_w8a8_site(fake):
-    fake(store(sites=0))
-    assert harness.read_metric("w8a8_host_us_per_site.image", ctx()) is None
-    assert harness.read_metric("host_ms_per_call.image", ctx()) == pytest.approx(10.0)
